@@ -5,17 +5,34 @@
 Phases, each fatal on failure:
 
 1. the card: its name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``;
-3. hold each kernel against its plain torch version at the main path's
+2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
+   process per source, all at once;
+3. hold each kernel against its plain torch version at the main paths'
    shapes;
-4. the main path: compose a VDC on ``cuda:0``, schedule the paper's 16-task
+4. the DS path: compose a VDC on ``cuda:0``, schedule the paper's 16-task
    DS workload with EFT over ``paper_pool()``, and execute 3 instances of
    500,000 × 8 float32 rows (seeds 0, 1, 2) through the port's quickstart
-   entry point. The kernels' launch counts are read for this run alone, and
-   every task's output is compared with the same pipeline run on the host
-   backend only (placement must not change results);
-5. time each kernel over one instance's calls on the path, beside its plain
-   version and the least time the card could take (its bound).
+   entry point. The k-means and window kernels' launch counts are read for
+   this run alone, and every task's output is compared with the same
+   pipeline run on the host backend only (placement must not change
+   results);
+5. the serving path: qwen3-0.6b at full width (28 layers, random weights
+   from seed 0, bf16 activations) serves 16 requests (prompts of 128–1536
+   tokens, 32–96 new tokens) through the port's ``ServeEngine`` with 8
+   slots, a 2048-token cache and the EFT admission rule. The attention
+   kernels' launch counts are read for this run alone and must equal 28
+   per prefill and 28 per decode tick. The same trace is served again
+   with the plain attention. In bf16 the prefill logits of the two runs
+   may part by no more than twice what the plain version parts from
+   itself in another order of summation (rounding in 28 bf16 layers puts
+   that spread above 2e-2). The trace is then served with float32
+   compute, kernels and plain: there prefill logits agree within 2e-4 and
+   token streams up to each request's first near tie (top two plain
+   logits within 2e-4);
+6. time each kernel over its calls on its path (CUDA graph, CUDA events),
+   beside its plain version, the least time the card could take (its
+   bound) and, for the attention kernels, PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs.
 
 Prints the card line and one JSON line of kernel results before the last
 line, which is ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -24,12 +41,15 @@ no result, when there is no CUDA card.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
@@ -37,9 +57,11 @@ sys.path.insert(0, str(HERE / "src"))
 
 ROWS = 500_000
 INSTANCES = 3
-#: H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
+#: H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor
+#: cores, bf16 dense tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 #: the kernels' calls in one pipeline instance under the EFT schedule:
 #: sweep_clustering (k = 2, 3, 4, 6 on the 2 PCA columns, 10 steps each),
 #: train_cluster (k = 4 on the 3 filtered columns, 20 steps); window_agg
@@ -47,6 +69,13 @@ F32_FLOP_PER_S = 67e12
 KMEANS_CALLS = [(ROWS, 2, k, 10) for k in (2, 3, 4, 6)] + [(ROWS, 3, 4, 20)]
 WINDOW_CALLS = [(ROWS, 4, 8, "mean", 1), (ROWS, 4, 16, "mean", 2)]
 PER_INSTANCE = {"kmeans_assign": 60, "window_agg": 3}
+#: the serving path: arch, engine, trace size; bf16 tolerance of
+#: tests/test_kernels.py:17
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_ENGINE = {"max_batch": 8, "max_seq": 2048, "policy": "eft"}
+SERVE_REQUESTS = 16
+BF16_TOL = 2e-2
+F32_TOL = 2e-4
 
 
 def phase(name):
@@ -116,6 +145,89 @@ def check_window(dev):
         torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
         if s == ROWS and agg == "mean":
             worst = max(worst, err)
+    return worst
+
+
+def serve_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(SERVE_ARCH)
+
+
+def serve_trace(cfg):
+    """The serving trace: (prompt, max_new_tokens, arrival) per request,
+    from numpy's default_rng(0); prompt tokens uniform in [2, vocab)."""
+    rng = np.random.default_rng(0)
+    trace = []
+    for i in range(SERVE_REQUESTS):
+        plen = int(rng.integers(128, 1537))
+        prompt = rng.integers(2, cfg.vocab_size, size=plen).astype(np.int32)
+        trace.append((prompt, int(rng.integers(32, 97)), i * 0.25))
+    return trace
+
+
+def attention_shapes(cfg, trace):
+    """The attention kernels' shapes on the serving path: the prompt
+    lengths (flash, B = 1), and a decode valid mask of the engine's
+    (max_batch, max_seq) cache with each slot holding one of the first
+    requests halfway through its new tokens."""
+    lens = [len(p) for p, _, _ in trace]
+    b, c = SERVE_ENGINE["max_batch"], SERVE_ENGINE["max_seq"]
+    filled = [len(p) + n // 2 for p, n, _ in trace[:b]]
+    valid = torch.arange(c)[None] < torch.tensor(filled)[:, None]
+    return lens, valid
+
+
+def attention_inputs(cfg, s, seed, dev, b=1, c=None):
+    dt = getattr(torch, cfg.dtype)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if c is None:  # prefill: q (1, S, Hq, D), k/v (1, S, Hkv, D)
+        shapes = [(b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)]
+    else:  # decode: q (B, Hq, D), k/v (B, C, Hkv, D)
+        shapes = [(b, hq, d), (b, c, hkv, d), (b, c, hkv, d)]
+    return [randn(sh, seed + i, dev).to(dt) for i, sh in enumerate(shapes)]
+
+
+def check_flash(dev, cfg, lens):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    worst = 0.0
+    for s in sorted({min(lens), sorted(lens)[len(lens) // 2], max(lens), 1}):
+        q, k, v = attention_inputs(cfg, s, s, dev)
+        out = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True
+        ).transpose(1, 2)
+        err = float((out.float() - ref.float()).abs().max())
+        print(f"flash_attention S={s} {tuple(q.shape)} bf16: max |out - plain| {err:.3e}")
+        torch.testing.assert_close(out, ref, rtol=BF16_TOL, atol=BF16_TOL)
+        worst = max(worst, err)
+    return worst
+
+
+def check_decode(dev, cfg, valid):
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    b, c = valid.shape
+    q, k, v = attention_inputs(cfg, 1, 7, dev, b=b, c=c)
+    valid = valid.to(dev)
+    empty = valid.clone()
+    empty[0] = False  # a row with no valid slot gives 0
+    worst = 0.0
+    for mask in (valid, empty):
+        out = decode_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(q, k, v, mask)
+        err = float((out.float() - ref.float()).abs().max())
+        print(
+            f"decode_attention {tuple(k.shape)} bf16, {int(mask.sum())} valid slots: "
+            f"max |out - plain| {err:.3e}"
+        )
+        torch.testing.assert_close(out, ref, rtol=BF16_TOL, atol=BF16_TOL)
+        worst = max(worst, err)
+    if out[0].abs().max() != 0:
+        raise AssertionError("decode_attention: an all-invalid row is not 0")
     return worst
 
 
@@ -220,6 +332,237 @@ def run_pipeline(dev):
 # -- phase 5 -----------------------------------------------------------------
 
 
+def _top2_gap(logits):
+    top = logits.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).cpu()
+
+
+class ServeRun:
+    """Serves the trace through a ``ServeEngine`` and records, besides the
+    engine's own bookkeeping, each prefill's and decode tick's host time
+    (the card synchronised), every request's prefill logits, and per
+    emitted token the gap between the two largest logits behind it."""
+
+    def __init__(self, cfg, params, trace, plain):
+        from repro_torch.serve import EngineConfig, RequestSpec, ServeEngine
+
+        self.eng = ServeEngine(
+            cfg, params, EngineConfig(**SERVE_ENGINE, plain_attention=plain)
+        )
+        for rid, (prompt, n_new, arrival) in enumerate(trace):
+            self.eng.submit(
+                RequestSpec(rid=rid, prompt=prompt, max_new_tokens=n_new, arrival=arrival)
+            )
+        self.prefill_s = self.decode_s = 0.0
+        self.prefill_tokens = self.decode_ticks = 0
+        self.prefill_logits, self.gaps = {}, defaultdict(list)
+        self._last = None
+        prefill, decode = self.eng._prefill, self.eng._decode
+
+        def timed_prefill(params, tokens, caches):
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, tokens, caches)
+            torch.cuda.synchronize()
+            self.prefill_s += time.perf_counter() - t0
+            self.prefill_tokens += tokens.shape[1]
+            self._last = logits[0]
+            return logits, caches
+
+        def timed_decode(params, tok, pos, caches):
+            t0 = time.perf_counter()
+            nxt, logits, caches = decode(params, tok, pos, caches)
+            torch.cuda.synchronize()
+            self.decode_s += time.perf_counter() - t0
+            self.decode_ticks += 1
+            gap = _top2_gap(logits)
+            for b, r in enumerate(self.eng.slots):
+                if r is not None:
+                    self.gaps[r.rid].append(float(gap[b]))
+            return nxt, logits, caches
+
+        self.eng._prefill, self.eng._decode = timed_prefill, timed_decode
+
+    def run(self, max_ticks=100_000):
+        eng = self.eng
+        t0 = time.perf_counter()
+        while (eng.queue or any(s is not None for s in eng.slots)) and eng.ticks < max_ticks:
+            rid = eng.step()["admitted"]
+            if rid is not None:  # its prefill ran this tick, before the decode
+                self.prefill_logits[rid] = self._last.float().cpu()
+                self.gaps[rid].insert(0, float(_top2_gap(self._last)))
+        self.wall = time.perf_counter() - t0
+        self.done = {r.rid: r for r in eng.finished}
+        self.ticks, self.latency = eng.ticks, eng.latency_stats()
+        return self
+
+
+def run_serving(dev, cfg, trace):
+    from repro_torch import convert
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init(cfg, gen, dev)
+    n_params = sum(t.numel() for t in convert.leaves(params))
+    print(f"{cfg.name}: {n_params} parameters ({cfg.param_dtype} masters, {cfg.dtype} compute)")
+    for plain in (False, True):  # warm-up: cuBLAS handles, allocator, kernels
+        ServeRun(cfg, params, [(trace[0][0][:128], 4, 0.0)], plain).run()
+    torch.cuda.synchronize()
+
+    flash_attention.launches = decode_attention.launches = 0
+    main = ServeRun(cfg, params, trace, plain=False).run()
+    launches = {
+        "flash_attention": flash_attention.launches,
+        "decode_attention": decode_attention.launches,
+    }
+    print(f"launches on the serving path: {launches}")
+    want = {
+        "flash_attention": cfg.n_layers * len(main.prefill_logits),
+        "decode_attention": cfg.n_layers * main.decode_ticks,
+    }
+    if launches != want:
+        raise AssertionError(f"the trace implies {want} launches, the run made {launches}")
+    main.eng = None  # free its cache before the next run
+    tick = profile_decode(cfg, params, trace)
+    plain = ServeRun(cfg, params, trace, plain=True).run()
+    plain.eng = None
+    check_lengths(main, trace)
+    check_lengths(plain, trace)
+
+    # bf16: the kernels' order of summation against the plain version's,
+    # beside the plain version against itself in another order (its KV
+    # chunk at 128, not 1024): rounding to bf16 in 28 layers parts two
+    # orders of the same sums by more than 2e-2 in the logits
+    spread = plain_spread(cfg, params, trace, plain.prefill_logits)
+    err = compare_runs(main, plain, trace, None)
+    print(
+        f"bf16: max |prefill logits, kernels - plain| {max(err):.3e}; "
+        f"the plain version in two orders of summation: {max(spread):.3e}"
+    )
+    if max(err) > 2 * max(spread):
+        raise AssertionError("bf16 kernel logits part from plain beyond twice its own spread")
+
+    # float32 compute, same weights and trace: within the float32 tolerance
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    runs32 = [ServeRun(cfg32, params, trace, plain=p).run() for p in (False, True)]
+    for r in runs32:
+        r.eng = None
+        check_lengths(r, trace)
+    err32 = compare_runs(*runs32, trace, F32_TOL)
+    print(f"float32: max |prefill logits, kernels - plain| {max(err32):.3e} (bound {F32_TOL})")
+
+    stats = {}
+    for name, r in (("kernels", main), ("plain", plain)):
+        tokens = sum(len(q.output) for q in r.done.values())
+        stats[name] = {
+            "wall_s": r.wall,
+            "prefill_ms_per_token": r.prefill_s * 1e3 / r.prefill_tokens,
+            "decode_ms_per_tick": r.decode_s * 1e3 / r.decode_ticks,
+            "tokens_per_s": tokens / r.wall,
+            "prefills": len(r.prefill_logits),
+            "decode_ticks": r.decode_ticks,
+            "tokens": tokens,
+            "engine_ticks": r.ticks,
+        }
+        print(f"serving ({name} attention): {json.dumps(stats[name])}")
+    print(f"engine latency stats: {json.dumps(main.latency)}")
+    stats["decode_tick_profile"] = tick
+    return launches, stats, {"bf16": max(err), "bf16_plain_spread": max(spread), "float32": max(err32)}
+
+
+def profile_decode(cfg, params, trace, ticks=3):
+    """Decode ticks at a full batch (8 slots): host ms per tick (no
+    profiler), then under ``torch.profiler`` the kernels launched and the
+    device time per tick, by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b = SERVE_ENGINE["max_batch"]
+    run = ServeRun(cfg, params, [(p, 64, 0.0) for p, _, _ in trace[:b]], plain=False)
+    eng = run.eng
+    while any(s is None for s in eng.slots):
+        eng.step()  # admit all requests, one prefill a tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / ticks
+    launches = sum(e.count for e in kernels) / ticks
+    print(
+        f"decode tick at batch {b}: {host_ms:.3f} ms on the host clock; under the "
+        f"profiler {launches:.0f} kernels and {device_ms:.3f} ms of device time a "
+        f"tick, so the card idles {1 - device_ms / host_ms:.1%} of the tick"
+    )
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        ms = e.self_device_time_total / 1e3 / ticks
+        print(f"  {ms:8.3f} ms/tick {e.count // ticks:5d} launches/tick  {e.key[:90]}")
+    return {"host_ms": host_ms, "device_ms": device_ms, "kernels_per_tick": launches}
+
+
+def check_lengths(run, trace):
+    for rid, (_, n_new, _) in enumerate(trace):
+        out = run.done[rid].output
+        if len(out) != n_new + 1:
+            raise AssertionError(f"request {rid}: {len(out)} tokens, not {n_new + 1}")
+        logits = run.prefill_logits[rid]
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"request {rid}: prefill logits not finite")
+
+
+def compare_runs(kern, plain, trace, tol):
+    """Per request: the largest prefill-logit difference, and the token
+    position up to which the streams agree beside the first position where
+    the plain run's top two logits lie within ``tol`` (a near tie). With a
+    ``tol``, logits must agree within it and the streams up to the first
+    near tie."""
+    errs = []
+    for rid, (prompt, _, _) in enumerate(trace):
+        got, ref = kern.done[rid].output, plain.done[rid].output
+        logits, ref_logits = kern.prefill_logits[rid], plain.prefill_logits[rid]
+        errs.append(float((logits - ref_logits).abs().max()))
+        near_tol = BF16_TOL if tol is None else tol
+        near = next((i for i, g in enumerate(plain.gaps[rid]) if g <= near_tol), len(got))
+        agree = next((i for i, (a, b) in enumerate(zip(got, ref, strict=True)) if a != b), len(got))
+        print(
+            f"  request {rid}: prompt {len(prompt)}, {len(got)} tokens, prefill logits "
+            f"max |kernels - plain| {errs[-1]:.3e}, first near tie (gap <= {near_tol}) "
+            f"at {near}, streams agree up to {agree}"
+        )
+        if tol is not None:
+            torch.testing.assert_close(logits, ref_logits, rtol=tol, atol=tol)
+            if agree < near:
+                raise AssertionError(f"request {rid}: streams part at {agree} before a near tie")
+    return errs
+
+
+def plain_spread(cfg, params, trace, logits):
+    """Per request: the plain version's prefill logits with another KV chunk
+    (another order of the same f32 sums) against ``logits``."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    other = dataclasses.replace(cfg, attn_chunk=128)
+    cast = M.cast_params(cfg, params)
+    out = []
+    for rid, (prompt, _, _) in enumerate(trace):
+        toks = torch.as_tensor(prompt, device=cast["final_norm"]["scale"].device)[None]
+        caches = T.init_caches(other, 1, SERVE_ENGINE["max_seq"], device=toks.device)
+        got, _ = M.prefill(other, cast, toks, caches, plain_attention=True)
+        out.append(float((got[0].float().cpu() - logits[rid]).abs().max()))
+    return out
+
+
+# -- phase 6 -----------------------------------------------------------------
+
+
 def graph_ms(calls, reps=20):
     """Device time of one pass over ``calls`` (closures), from CUDA-graph
     replays timed with CUDA events: the median of ``reps`` replays."""
@@ -249,9 +592,9 @@ def graph_ms(calls, reps=20):
     return sorted(times)[len(times) // 2]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -285,12 +628,62 @@ def time_window(dev):
     return ms, plain_ms, bound(nbytes / n_calls, flops / n_calls)
 
 
+def time_flash(dev, cfg, lens):
+    """One call per prompt length of the trace (the path makes 28 of each)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    kernel, plain, library, nbytes, flops = [], [], [], 0, 0
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for s in lens:
+        q, k, v = attention_inputs(cfg, s, s, dev)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        kernel.append(lambda q=q, k=k, v=v: flash_attention(q, k, v, causal=True))
+        plain.append(lambda q=qt, k=kt, v=vt: flash_attention_ref(q, k, v, causal=True))
+        library.append(
+            lambda q=qt, k=kt, v=vt: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True
+            )
+        )
+        nbytes += 2 * s * d * (2 * hq + 2 * hkv)  # q, k, v in; out out (bf16)
+        flops += 2 * hq * s * s * d  # the causal half of q k^T and of p v
+    n = len(lens)
+    times = [graph_ms(calls) / n for calls in (kernel, plain, library)]
+    return (*times, bound(nbytes / n, flops / n, BF16_FLOP_PER_S))
+
+
+def time_decode(dev, cfg, valid):
+    """One call at the path's decode shape (28 per engine tick)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    b, c = valid.shape
+    q, k, v = attention_inputs(cfg, 1, 7, dev, b=b, c=c)
+    valid = valid.to(dev)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = valid[:, None, None, :]
+    kernel = [lambda: decode_attention(q, k, v, valid)]
+    plain = [lambda: decode_attention_ref(q, k, v, valid)]
+    library = [
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    ]
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_valid = int(valid.sum())  # the kernel reads the K and V rows of valid slots only
+    nbytes = 2 * (2 * b * hq * d + 2 * n_valid * hkv * d) + b * c  # + the valid bytes
+    flops = 4 * n_valid * hq * d
+    times = [graph_ms(calls) for calls in (kernel, plain, library)]
+    return (*times, bound(nbytes, flops, BF16_FLOP_PER_S))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    t_start = time.perf_counter()
 
     phase("1. card")
     card = card_line()
@@ -306,13 +699,34 @@ def main() -> int:
     print(f"built {names} in {time.perf_counter() - t0:.2f} s")
 
     phase("3. kernels vs plain versions")
-    err = {"kmeans_assign": check_kmeans(dev), "window_agg": check_window(dev)}
+    cfg = serve_cfg()
+    trace = serve_trace(cfg)
+    lens, valid = attention_shapes(cfg, trace)
+    err = {
+        "kmeans_assign": check_kmeans(dev),
+        "window_agg": check_window(dev),
+        "flash_attention": check_flash(dev, cfg, lens),
+        "decode_attention": check_decode(dev, cfg, valid),
+    }
 
-    phase("4. main path")
+    phase("4. DS path")
     launches, walls = run_pipeline(dev)
 
-    phase("5. timing")
-    timing = {"kmeans_assign": time_kmeans(dev), "window_agg": time_window(dev)}
+    phase("5. serving path")
+    t0 = time.perf_counter()
+    serve_launches, serve_stats, serve_err = run_serving(dev, cfg, trace)
+    launches.update(serve_launches)
+    print(f"serving phase: {time.perf_counter() - t0:.3f} s")
+
+    phase("6. timing")
+    timing = {
+        "kmeans_assign": time_kmeans(dev) + (None,),
+        "window_agg": time_window(dev) + (None,),
+    }
+    flash_ms, flash_plain, flash_lib, flash_bound = time_flash(dev, cfg, lens)
+    timing["flash_attention"] = (flash_ms, flash_plain, flash_bound, flash_lib)
+    dec_ms, dec_plain, dec_lib, dec_bound = time_decode(dev, cfg, valid)
+    timing["decode_attention"] = (dec_ms, dec_plain, dec_bound, dec_lib)
     meta = {
         "kmeans_assign": (
             "src/repro_torch/csrc/kmeans_assign.cu",
@@ -322,12 +736,21 @@ def main() -> int:
             "src/repro_torch/csrc/window_agg.cu",
             "src/repro/kernels/window_agg/window_agg.py:74",
         ),
+        "flash_attention": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:112",
+        ),
+        "decode_attention": (
+            "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:81",
+        ),
     }
     rows = []
-    for name, (ms, plain_ms, (bound_ms, bound_by)) in timing.items():
+    for name, (ms, plain_ms, (bound_ms, bound_by), library_ms) in timing.items():
+        lib = "" if library_ms is None else f", library {library_ms * 1e3:.3f} us"
         print(
-            f"{name}: {ms * 1e3:.3f} us per launch (plain {plain_ms * 1e3:.3f} us, "
-            f"bound {bound_ms * 1e3:.3f} us by {bound_by}), over one instance's calls"
+            f"{name}: {ms * 1e3:.3f} us per launch (plain {plain_ms * 1e3:.3f} us{lib}, "
+            f"bound {bound_ms * 1e3:.3f} us by {bound_by}), over its path's calls"
         )
         rows.append(
             {
@@ -341,10 +764,13 @@ def main() -> int:
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
-                "library_ms": None,
+                "library_ms": library_ms,
             }
         )
     print(f"pipeline wall per instance: {walls}")
+    print(f"serving: {json.dumps(serve_stats)}")
+    print(f"serving, max |prefill logits, kernels - plain|: {json.dumps(serve_err)}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     count = torch.cuda.device_count()

@@ -53,6 +53,28 @@ def from_reference(tree: Any, device: object) -> Any:
     return _map(leaf, tree)
 
 
+def params_from_reference(
+    tree: Any, device: object, dtype: Optional[torch.dtype] = None
+) -> Any:
+    """The JAX package's parameter tree (``repro.models.model.init``) as
+    the port's tensors on ``device``, leaf for leaf.
+
+    Leaves are anything ``np.asarray`` takes (JAX arrays, numpy arrays),
+    so this module needs no JAX. ``dtype`` casts every leaf; without it
+    each keeps its own type (bfloat16 leaves come back as bfloat16)."""
+    dev = torch.device(device)
+
+    def leaf(x):
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":  # ml_dtypes: no torch counterpart in numpy
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        return t.to(dev, dtype or t.dtype)
+
+    return _map(leaf, tree)
+
+
 def to_numpy(tree: Any) -> Any:
     """Tensors → numpy arrays (via the host), keeping the structure."""
 

@@ -33,10 +33,21 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
-#: C signature of each library's entry point: (symbol, argtypes)
-SIGNATURES: Dict[str, tuple] = {
-    "kmeans_assign": ("kmeans_assign_f32", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "window_agg": ("window_agg_f32", [_P, _P, _I, _I, _I, _I, _I, _P]),
+_F = ctypes.c_float
+_FLASH = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+_DECODE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
+#: C signatures of each library's entry points: {symbol: argtypes}
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "kmeans_assign": {"kmeans_assign_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "window_agg": {"window_agg_f32": [_P, _P, _I, _I, _I, _I, _I, _P]},
+    "flash_attention": {
+        "flash_attention_f32": _FLASH,
+        "flash_attention_bf16": _FLASH,
+    },
+    "decode_attention": {
+        "decode_attention_f32": _DECODE,
+        "decode_attention_bf16": _DECODE,
+    },
 }
 SOURCES = tuple(SIGNATURES)
 
@@ -81,16 +92,17 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
 
 
 @functools.lru_cache(maxsize=None)
-def library(name: str):
-    """The loaded library for ``csrc/<name>.cu`` (built on first use) and
-    its entry point with ``argtypes`` declared."""
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built on first use), with
+    ``argtypes`` declared on each entry point of :data:`SIGNATURES`; call
+    an entry point as an attribute, e.g. ``library(name).window_agg_f32``."""
     path = build([name])[name]
     lib = ctypes.CDLL(str(path))
-    symbol, argtypes = SIGNATURES[name]
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    for symbol, argtypes in SIGNATURES[name].items():  # det: ok key-addressed
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def check(err: int, name: str) -> None:

@@ -1,0 +1,104 @@
+"""Wrapper of the decode-attention kernel (``csrc/decode_attention.cu``).
+
+Same contract as the JAX wrapper: q (B, Hq, D), the cache's k/v
+(B, C, Hkv, D) and a per-slot ``valid`` (B, C) mask. The kernel masks on
+``valid`` alone, so a caller with causal or window masks folds them into
+it (``repro_torch.models.layers.attention_block`` does). Nothing is
+padded: the kernel takes any C and any D up to 256. A CUDA tensor
+launches the kernel on the current stream; a CPU tensor takes the plain
+version in :mod:`repro_torch.kernels.decode_attention.ref`. Nothing falls
+back from one to the other.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+#: the kernel's entry point per input type
+ENTRY = {torch.float32: "decode_attention_f32", torch.bfloat16: "decode_attention_bf16"}
+MAX_HEAD_DIM = 256
+
+
+def _check(q, k, v, valid) -> None:
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"decode_attention wants q (B, Hq, D) and k, v (B, C, Hkv, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, hq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if k.shape[2] < 1 or hq % k.shape[2]:
+        raise ValueError("Hq must be a multiple of Hkv")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
+    if q.dtype not in ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"decode_attention wants float32 or bfloat16 alike, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if valid.shape != k.shape[:2] or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be bool {tuple(k.shape[:2])}")
+    if not (q.device == k.device == v.device == valid.device):
+        raise ValueError(
+            f"q on {q.device}, k on {k.device}, v on {v.device}, valid on {valid.device}"
+        )
+    if not all(t.is_contiguous() for t in (q, k, v, valid)):
+        raise ValueError("decode_attention wants contiguous q, k, v and valid")
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    *,
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """q (B, Hq, D), k/v (B, C, Hkv, D), valid (B, C) bool → (B, Hq, D).
+
+    A row with no valid slot gives 0. ``decode_attention.launches`` counts
+    kernel launches."""
+    if valid is None:
+        valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
+    _check(q, k, v, valid)
+    b, hq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, valid, softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    fn = getattr(_build.library("decode_attention"), ENTRY[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            q.data_ptr(),
+            k.data_ptr(),
+            v.data_ptr(),
+            valid.data_ptr(),
+            out.data_ptr(),
+            b,
+            k.shape[1],
+            hq,
+            k.shape[2],
+            d,
+            float(softcap),
+            float(scale),
+            stream,
+        )
+    _build.check(err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

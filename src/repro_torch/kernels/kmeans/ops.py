@@ -59,7 +59,7 @@ def kmeans_assign(
     min_d2 = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
         return assign, min_d2
-    fn = _build.library("kmeans_assign")
+    fn = _build.library("kmeans_assign").kmeans_assign_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(

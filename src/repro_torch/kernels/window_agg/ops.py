@@ -56,7 +56,7 @@ def window_agg(x: torch.Tensor, *, window: int, agg: str = "mean") -> torch.Tens
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    fn = _build.library("window_agg")
+    fn = _build.library("window_agg").window_agg_f32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), out.data_ptr(), s, c, w, AGGS[agg], rows, stream)

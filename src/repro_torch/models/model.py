@@ -1,0 +1,163 @@
+"""LM wrapper: embed → backbone → head; prefill; decode.
+
+A port of ``repro.models.model`` (serving half; the training loss waits
+for the training slice). Functions over explicit parameter trees of the
+JAX package's shape. The weights come from :func:`init` with a seeded
+:class:`torch.Generator`, or from the JAX package's own ``init`` through
+``repro_torch.convert.params_from_reference``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
+    """Parameters in ``cfg.param_dtype`` on ``device``, drawn from
+    ``generator`` (which must live on ``device``'s type) with the JAX
+    ``init``'s distributions: normal × the same per-leaf scales, norms at
+    one."""
+    p = {
+        "embed": L.init_embed(cfg, generator, device),
+        "final_norm": L.init_norm(cfg, device),
+    }
+    p.update(T.init_backbone(cfg, generator, device))
+    return p
+
+
+def cast_params(cfg: ModelConfig, params: Params) -> Params:
+    """The parameters that only enter products, cast once to ``cfg.dtype``.
+
+    The layers cast every weight to the activation type at each product
+    (``w.to(x.dtype)``), as the JAX layers do; casting those weights once
+    gives the same values and skips re-reading the float32 masters on
+    every step. Norm scales stay as they are: the layers compute norms
+    in float32 from them."""
+    dt = getattr(torch, cfg.dtype)
+
+    def walk(tree, norm: bool):
+        if isinstance(tree, dict):
+            return {
+                k: walk(v, norm or "norm" in k)
+                for k, v in tree.items()  # det: ok key-addressed rebuild
+            }
+        if isinstance(tree, list):
+            return [walk(v, norm) for v in tree]
+        return tree if norm else tree.to(dt)
+
+    return walk(params, False)
+
+
+def forward(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    caches: Optional[Params] = None,
+    return_hidden: bool = False,
+    plain_attention: bool = False,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """tokens (B, S) int → (logits (B, S, V), caches).
+
+    Caches are updated in place. ``return_hidden=True`` skips the LM head
+    and returns the final normed hidden states instead."""
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+        positions = positions[None].expand(b, s)
+    x = L.embed_tokens(cfg, params["embed"], tokens)
+    x, caches = T.apply_backbone(
+        cfg,
+        params,
+        x,
+        positions=positions,
+        caches=caches,
+        plain_attention=plain_attention,
+    )
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    if return_hidden:
+        return x, caches
+    return L.lm_logits(cfg, params["embed"], x), caches
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode
+# ---------------------------------------------------------------------------
+
+
+def prefill(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,
+    caches: Params,
+    *,
+    plain_attention: bool = False,
+) -> Tuple[torch.Tensor, Params]:
+    """Run the prompt through the model, filling caches.
+
+    Returns (last-position logits (B, V), caches)."""
+    hidden, caches = forward(
+        cfg,
+        params,
+        tokens,
+        caches=caches,
+        return_hidden=True,
+        plain_attention=plain_attention,
+    )
+    return L.lm_logits(cfg, params["embed"], hidden[:, -1]), caches
+
+
+def decode_step(
+    cfg: ModelConfig,
+    params: Params,
+    token: torch.Tensor,
+    pos: torch.Tensor,
+    caches: Params,
+    *,
+    plain_attention: bool = False,
+) -> Tuple[torch.Tensor, Params]:
+    """One decode step. token (B,) int, pos (B,) absolute position.
+
+    Returns (logits (B, V), caches)."""
+    logits, caches = forward(
+        cfg,
+        params,
+        token[:, None],
+        positions=pos[:, None].to(torch.int32),
+        caches=caches,
+        plain_attention=plain_attention,
+    )
+    return logits[:, 0], caches
+
+
+def greedy_generate(
+    cfg: ModelConfig,
+    params: Params,
+    prompt: torch.Tensor,
+    n_tokens: int,
+    max_seq: int,
+    *,
+    plain_attention: bool = False,
+) -> torch.Tensor:
+    """Reference greedy decoding (tests/examples; the serving engine in
+    repro_torch.serve batches and schedules for real)."""
+    b, s = prompt.shape
+    caches = T.init_caches(cfg, b, max_seq, device=prompt.device)
+    logits, caches = prefill(cfg, params, prompt, caches, plain_attention=plain_attention)
+    out = [torch.argmax(logits, -1)]
+    for i in range(n_tokens - 1):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device=prompt.device)
+        logits, caches = decode_step(
+            cfg, params, out[-1], pos, caches, plain_attention=plain_attention
+        )
+        out.append(torch.argmax(logits, -1))
+    return torch.stack(out, dim=1)

@@ -8,6 +8,8 @@ installed:
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.kmeans import kmeans_assign, kmeans_assign_ref
 from repro_torch.kernels.kmeans.ref import kmeans_distances
 from repro_torch.kernels.window_agg import window_agg, window_agg_ref
@@ -96,3 +98,112 @@ def test_pipeline_on_the_card_launches_the_kernels_and_matches_host(cuda):
     assert host.by_backend == {"host": 16}
     got = np.asarray(convert.to_numpy(rep.outputs["export"]))
     np.testing.assert_allclose(got, host.outputs["export"], rtol=1e-3)
+
+
+HEAD_DIMS = [16, 32, 48, 64, 112, 128, 256]
+TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _randn(shape, seed, dtype, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,Hq,Hkv,D,causal,window,cap",
+    [(1, 200, 4, 2, d, True, 0, 0.0) for d in HEAD_DIMS]
+    + [
+        (2, 96, 4, 2, 64, True, 0, 50.0),
+        (1, 128, 2, 1, 48, True, 16, 0.0),
+        (1, 200, 1, 1, 128, False, 0, 0.0),
+        (1, 33, 8, 4, 16, True, 5, 30.0),
+        (1, 1536, 16, 8, 128, True, 0, 0.0),  # the serving path's longest prompt
+        (1, 1, 16, 8, 128, True, 0, 0.0),
+    ],
+)
+def test_flash_attention_kernel_vs_plain(cuda, B, S, Hq, Hkv, D, causal, window, cap, dtype):
+    q = _randn((B, S, Hq, D), S + D, dtype, cuda)
+    k = _randn((B, S, Hkv, D), S + D + 1, dtype, cuda)
+    v = _randn((B, S, Hkv, D), S + D + 2, dtype, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_ref(
+        q.transpose(1, 2),
+        k.transpose(1, 2),
+        v.transpose(1, 2),
+        causal=causal,
+        window=window,
+        softcap=cap,
+    ).transpose(1, 2)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,C,D,cap",
+    [(2, 4, 2, 300, d, 0.0) for d in HEAD_DIMS]
+    + [
+        (1, 8, 2, 100, 64, 50.0),
+        (3, 2, 2, 256, 128, 0.0),
+        (1, 16, 8, 40, 112, 0.0),
+        (2, 48, 8, 70, 128, 0.0),  # G = 6: two passes over the cache
+        (8, 16, 8, 2048, 128, 0.0),  # the serving path's decode
+    ],
+)
+def test_decode_attention_kernel_vs_plain(cuda, B, Hq, Hkv, C, D, cap, dtype):
+    q = _randn((B, Hq, D), C + D, dtype, cuda)
+    k = _randn((B, C, Hkv, D), C + D + 1, dtype, cuda)
+    v = _randn((B, C, Hkv, D), C + D + 2, dtype, cuda)
+    g = torch.Generator(device="cpu").manual_seed(C)
+    valid = (torch.rand((B, C), generator=g) > 0.3).to(cuda)
+    valid[0] = False  # an all-invalid row gives 0
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, valid, softcap=cap)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    ref = decode_attention_ref(q, k, v, valid, softcap=cap)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_raise_instead_of_taking_the_plain_version(cuda):
+    before = (flash_attention.launches, decode_attention.launches)
+    x = torch.zeros((1, 16, 8, 2, 8), device=cuda)[..., 0].transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(x, x, x)
+    q = torch.zeros((2, 4, 32), device=cuda)
+    kv = torch.zeros((2, 10, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="valid on"):
+        decode_attention(q, kv, kv, torch.ones((2, 10), dtype=torch.bool))
+    assert (flash_attention.launches, decode_attention.launches) == before
+
+
+@pytest.mark.gpu
+def test_serve_engine_on_the_card_launches_the_kernels_and_matches_plain(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import EngineConfig, RequestSpec, ServeEngine
+
+    cfg = get_config("gemma2-9b", smoke=True)  # local rings, softcaps
+    params = M.init(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    outs, counts = [], []
+    for plain in (False, True):
+        flash_attention.launches = decode_attention.launches = 0
+        eng = ServeEngine(
+            cfg, params, EngineConfig(max_batch=2, max_seq=32, plain_attention=plain)
+        )
+        for i in range(3):
+            prompt = torch.arange(2 + i, 14 + i, dtype=torch.int32).numpy()
+            eng.submit(RequestSpec(rid=i, prompt=prompt, max_new_tokens=10))
+        outs.append({r.rid: r.output for r in eng.run()})
+        counts.append((flash_attention.launches, decode_attention.launches, eng.ticks))
+    (flash, decode, ticks), (pf, pd, _) = counts
+    assert flash == 3 * cfg.n_layers and decode == ticks * cfg.n_layers
+    assert (pf, pd) == (0, 0)
+    assert outs[0] == outs[1]
