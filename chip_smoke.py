@@ -8,7 +8,13 @@ Phases, each fatal on failure:
 2. build the CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``, one
    process per source, all at once;
 3. hold each kernel against its plain torch version at the main paths'
-   shapes;
+   shapes (bf16 within 2e-2, float32 within 2e-4). The attention kernels
+   also run at gemma2-9b's head shape (D = 256, 16/8 heads, softcap 50)
+   with a 512-token window that bites at S = 1536, at D = 72 and 100
+   (not multiples of 16 or 8), on scattered decode masks with a whole
+   cache split invalid, and at C = 2000 (not a multiple of the split);
+   each case runs twice and must give bit-identical output, and an
+   all-invalid decode row must be exactly 0;
 4. the DS path: compose a VDC on ``cuda:0``, schedule the paper's 16-task
    DS workload with EFT over ``paper_pool()``, and execute 3 instances of
    500,000 × 8 float32 rows (seeds 0, 1, 2) through the port's quickstart
@@ -32,10 +38,16 @@ Phases, each fatal on failure:
 6. time each kernel over its calls on its path (CUDA graph, CUDA events),
    beside its plain version, the least time the card could take (its
    bound) and, for the attention kernels, PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs.
+   ``scaled_dot_product_attention`` on the same inputs. For the attention
+   kernels also their achieved TFLOP/s and GB/s, registers, shared memory
+   and spilled bytes (``cudaFuncGetAttributes``), the HGMMA and HMMA
+   instructions in the flash library's SASS (``cuobjdump``, where the
+   toolkit has it: a library without HGMMA fails the run), and the flash
+   kernel's share of the prefill time.
 
-Prints the card line and one JSON line of kernel results before the last
-line, which is ``{"ok": true, "device": {...}}``. Exits non-zero, printing
+Prints the card line, a JSON line of the attention kernels' report and
+one JSON line of kernel results before the last line, which is
+``{"ok": true, "device": {...}}``. Exits non-zero, printing
 no result, when there is no CUDA card.
 """
 
@@ -188,26 +200,75 @@ def attention_inputs(cfg, s, seed, dev, b=1, c=None):
     return [randn(sh, seed + i, dev).to(dt) for i, sh in enumerate(shapes)]
 
 
-def check_flash(dev, cfg, lens):
+def _flash_case(q, k, v, label, **kw):
+    """The flash kernel against its plain version on (q, k, v), twice: the
+    two runs must be bit-identical. Returns the largest deviation."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
+    out = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+    ref = ref.transpose(1, 2)
+    err = float((out.float() - ref.float()).abs().max())
+    print(f"flash_attention {label} {tuple(q.shape)} {q.dtype}: max |out - plain| {err:.3e}")
+    tol = BF16_TOL if q.dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    if not torch.equal(out, again):
+        raise AssertionError(f"flash_attention {label}: two runs differ")
+    return err
+
+
+def check_flash(dev, cfg, lens):
+    """The serving path's prompt lengths (bf16, and float32 as phase 5's
+    float32 run takes them), gemma2-9b's head shape (D = 256, 16/8 heads,
+    softcap 50) with a 512-token window that bites at S = 1536, and head
+    dims that are not multiples of 16 (72: TMA's zero fill) or 8 (100: the
+    wrapper's padding)."""
     worst = 0.0
     for s in sorted({min(lens), sorted(lens)[len(lens) // 2], max(lens), 1}):
         q, k, v = attention_inputs(cfg, s, s, dev)
-        out = flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        ref = flash_attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True
-        ).transpose(1, 2)
-        err = float((out.float() - ref.float()).abs().max())
-        print(f"flash_attention S={s} {tuple(q.shape)} bf16: max |out - plain| {err:.3e}")
-        torch.testing.assert_close(out, ref, rtol=BF16_TOL, atol=BF16_TOL)
-        worst = max(worst, err)
+        worst = max(worst, _flash_case(q, k, v, f"S={s}", causal=True))
+        f32 = [t.float() for t in (q, k, v)]
+        _flash_case(*f32, f"S={s}", causal=True)
+    g2 = dataclasses.replace(cfg, n_heads=16, n_kv_heads=8, head_dim=256)
+    q, k, v = attention_inputs(g2, 1536, 5, dev)
+    _flash_case(q, k, v, "gemma2-9b heads, window 512", causal=True, window=512, softcap=50.0)
+    for d in (72, 100):
+        q, k, v = attention_inputs(dataclasses.replace(cfg, head_dim=d), 829, d, dev)
+        _flash_case(q, k, v, f"D={d}", causal=True)
     return worst
 
 
-def check_decode(dev, cfg, valid):
+def _decode_case(q, k, v, valid, label):
+    """The decode kernels against their plain version, twice (bit-identical
+    runs); an all-invalid row must be exactly 0."""
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    out = decode_attention(q, k, v, valid)
+    again = decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q, k, v, valid)
+    err = float((out.float() - ref.float()).abs().max())
+    print(
+        f"decode_attention {label} {tuple(k.shape)} {q.dtype}, {int(valid.sum())} valid "
+        f"slots: max |out - plain| {err:.3e}"
+    )
+    tol = BF16_TOL if q.dtype == torch.bfloat16 else F32_TOL
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    if not torch.equal(out, again):
+        raise AssertionError(f"decode_attention {label}: two runs differ")
+    empty = ~valid.any(1)
+    if empty.any() and out[empty].abs().max() != 0:
+        raise AssertionError(f"decode_attention {label}: an all-invalid row is not 0")
+    return err
+
+
+def check_decode(dev, cfg, valid):
+    """The serving path's mask (bf16 and float32), the same with row 0 all
+    invalid, scattered (non-prefix) valid slots with a whole split invalid
+    in every row, and C = 2000, not a multiple of the split."""
+    from repro_torch.kernels.decode_attention import split_plan
 
     b, c = valid.shape
     q, k, v = attention_inputs(cfg, 1, 7, dev, b=b, c=c)
@@ -215,19 +276,21 @@ def check_decode(dev, cfg, valid):
     empty = valid.clone()
     empty[0] = False  # a row with no valid slot gives 0
     worst = 0.0
-    for mask in (valid, empty):
-        out = decode_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        ref = decode_attention_ref(q, k, v, mask)
-        err = float((out.float() - ref.float()).abs().max())
-        print(
-            f"decode_attention {tuple(k.shape)} bf16, {int(mask.sum())} valid slots: "
-            f"max |out - plain| {err:.3e}"
-        )
-        torch.testing.assert_close(out, ref, rtol=BF16_TOL, atol=BF16_TOL)
-        worst = max(worst, err)
-    if out[0].abs().max() != 0:
-        raise AssertionError("decode_attention: an all-invalid row is not 0")
+    for mask, label in ((valid, "serving mask"), (empty, "row 0 empty")):
+        worst = max(worst, _decode_case(q, k, v, mask, label))
+        _decode_case(*(t.float() for t in (q, k, v)), mask, label)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, split = split_plan(b, cfg.n_kv_heads, c, n_sm)
+    print(f"decode split plan at ({b}, {cfg.n_kv_heads}, {c}): {n_split} splits of {split}")
+    g = torch.Generator(device="cpu").manual_seed(3)
+    scattered = torch.rand((b, c), generator=g) > 0.5
+    scattered[:, split : 2 * split] = False
+    scattered[0] = False
+    _decode_case(q, k, v, scattered.to(dev), "scattered, split 1 empty")
+    c2 = 2000
+    q2, k2, v2 = attention_inputs(cfg, 1, 9, dev, b=b, c=c2)
+    ragged = (torch.rand((b, c2), generator=g) > 0.3).to(dev)
+    _decode_case(q2, k2, v2, ragged, f"C={c2}")
     return worst
 
 
@@ -650,31 +713,103 @@ def time_flash(dev, cfg, lens):
         flops += 2 * hq * s * s * d  # the causal half of q k^T and of p v
     n = len(lens)
     times = [graph_ms(calls) / n for calls in (kernel, plain, library)]
-    return (*times, bound(nbytes / n, flops / n, BF16_FLOP_PER_S))
+    work = {"bytes": nbytes / n, "flops": flops / n}
+    return (*times, bound(nbytes / n, flops / n, BF16_FLOP_PER_S), work)
 
 
 def time_decode(dev, cfg, valid):
-    """One call at the path's decode shape (28 per engine tick)."""
+    """The calls of one engine tick at the path's decode shape: one per
+    layer, each over its own layer's cache, so every call finds the cache
+    cold in L2 as the engine does (a 2048-slot cache is 67 MB, and its
+    valid part alone 29.6 MB of the 50 MB L2). Per launch."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 
     b, c = valid.shape
-    q, k, v = attention_inputs(cfg, 1, 7, dev, b=b, c=c)
-    valid = valid.to(dev)
-    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    mask = valid[:, None, None, :]
-    kernel = [lambda: decode_attention(q, k, v, valid)]
-    plain = [lambda: decode_attention_ref(q, k, v, valid)]
-    library = [
-        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
-    ]
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    layers = [
+        [torch.randn(sh, generator=gen, device=dev, dtype=dt) for sh in ((b, hq, d), (b, c, hkv, d), (b, c, hkv, d))]
+        for _ in range(cfg.n_layers)
+    ]
+    valid = valid.to(dev)
+    mask = valid[:, None, None, :]
+    kernel = [lambda q=q, k=k, v=v: decode_attention(q, k, v, valid) for q, k, v in layers]
+    plain = [lambda q=q, k=k, v=v: decode_attention_ref(q, k, v, valid) for q, k, v in layers]
+    library = [
+        lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True
+        )
+        for q, k, v in layers
+    ]
     n_valid = int(valid.sum())  # the kernel reads the K and V rows of valid slots only
     nbytes = 2 * (2 * b * hq * d + 2 * n_valid * hkv * d) + b * c  # + the valid bytes
     flops = 4 * n_valid * hq * d
-    times = [graph_ms(calls) for calls in (kernel, plain, library)]
-    return (*times, bound(nbytes, flops, BF16_FLOP_PER_S))
+    times = [graph_ms(calls) / len(layers) for calls in (kernel, plain, library)]
+    del layers
+    return (*times, bound(nbytes, flops, BF16_FLOP_PER_S), {"bytes": nbytes, "flops": flops})
+
+
+def sass_counts(name):
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of the
+    built library of ``csrc/<name>.cu``, or None without cuobjdump."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run(
+        [tool, "-sass", str(_build.library_path(name))],
+        capture_output=True,
+        text=True,
+        check=True,
+        timeout=300,
+    ).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "HMMA")}  # "HMMA" is not in "HGMMA"
+
+
+def attention_report(cfg, timing, work):
+    """Per attention kernel: achieved rate against the card's peak, its
+    registers, shared memory and spills at the serving shape and, for
+    flash, the tensor-core instructions in its SASS."""
+    from repro_torch.kernels.decode_attention.ops import kernel_attributes as decode_attrs
+    from repro_torch.kernels.flash_attention.ops import kernel_attributes as flash_attrs
+
+    dt = getattr(torch, cfg.dtype)
+    g = cfg.n_heads // cfg.n_kv_heads
+    report = {}
+    for name, attrs in (
+        ("flash_attention", flash_attrs(dt, cfg.head_dim)),
+        ("decode_attention", decode_attrs(dt, cfg.head_dim, g)),
+    ):
+        ms, _, (bound_ms, _), library_ms = timing[name]
+        row = {
+            "us": ms * 1e3,
+            "library_us": library_ms * 1e3,
+            "bound_us": bound_ms * 1e3,
+            "share_of_bound": bound_ms / ms,
+            "tflop_per_s": work[name]["flops"] / ms / 1e9,
+            "gb_per_s": work[name]["bytes"] / ms / 1e6,
+            **attrs,
+        }
+        if name == "flash_attention":
+            row["sass"] = sass_counts(name)
+        report[name] = row
+        print(
+            f"{name}: {row['us']:.3f} us per launch (library {row['library_us']:.3f} us, "
+            f"bound {row['bound_us']:.3f} us, {row['share_of_bound']:.1%} of it); "
+            f"{row['tflop_per_s']:.1f} TFLOP/s, {row['gb_per_s']:.1f} GB/s; "
+            f"{attrs['registers']} registers, {attrs['dynamic_smem'] + attrs['static_smem']} B "
+            f"shared memory a block, {attrs['local_bytes']} B spilled"
+            + (f"; SASS {row['sass']}" if name == "flash_attention" else "")
+        )
+    if report["flash_attention"]["sass"] is not None and not report["flash_attention"]["sass"]["HGMMA"]:
+        raise AssertionError("the flash library has no HGMMA: the bf16 kernel is off the tensor cores")
+    return report
 
 
 def main() -> int:
@@ -723,10 +858,21 @@ def main() -> int:
         "kmeans_assign": time_kmeans(dev) + (None,),
         "window_agg": time_window(dev) + (None,),
     }
-    flash_ms, flash_plain, flash_lib, flash_bound = time_flash(dev, cfg, lens)
+    flash_ms, flash_plain, flash_lib, flash_bound, flash_work = time_flash(dev, cfg, lens)
     timing["flash_attention"] = (flash_ms, flash_plain, flash_bound, flash_lib)
-    dec_ms, dec_plain, dec_lib, dec_bound = time_decode(dev, cfg, valid)
+    dec_ms, dec_plain, dec_lib, dec_bound, dec_work = time_decode(dev, cfg, valid)
     timing["decode_attention"] = (dec_ms, dec_plain, dec_bound, dec_lib)
+    attn = attention_report(cfg, timing, {"flash_attention": flash_work, "decode_attention": dec_work})
+    # the flash kernel's share of prefill: its device time over the trace's
+    # prompts (28 launches each) against the prefills' host time
+    kern = serve_stats["kernels"]
+    prefill_ms = kern["prefill_ms_per_token"] * sum(lens)
+    flash_total = flash_ms * len(lens) * cfg.n_layers
+    print(
+        f"prefill: flash_attention {flash_total:.3f} ms of device time over the trace's "
+        f"prompts, {flash_total / prefill_ms:.1%} of the {prefill_ms:.3f} ms of prefill"
+    )
+    print(f"attention kernels: {json.dumps(attn)}")
     meta = {
         "kmeans_assign": (
             "src/repro_torch/csrc/kmeans_assign.cu",

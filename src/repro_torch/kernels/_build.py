@@ -35,7 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _F = ctypes.c_float
 _FLASH = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
-_DECODE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
+_DECODE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 #: C signatures of each library's entry points: {symbol: argtypes}
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "kmeans_assign": {"kmeans_assign_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
@@ -43,10 +43,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "flash_attention": {
         "flash_attention_f32": _FLASH,
         "flash_attention_bf16": _FLASH,
+        "flash_attention_attributes": [_I, _I, _P],
     },
     "decode_attention": {
         "decode_attention_f32": _DECODE,
         "decode_attention_bf16": _DECODE,
+        "decode_attention_attributes": [_I, _I, _I, _P],
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -1,19 +1,24 @@
-"""Wrapper of the decode-attention kernel (``csrc/decode_attention.cu``).
+"""Wrapper of the decode-attention kernels (``csrc/decode_attention.cu``).
 
 Same contract as the JAX wrapper: q (B, Hq, D), the cache's k/v
 (B, C, Hkv, D) and a per-slot ``valid`` (B, C) mask. The kernel masks on
 ``valid`` alone, so a caller with causal or window masks folds them into
 it (``repro_torch.models.layers.attention_block`` does). Nothing is
-padded: the kernel takes any C and any D up to 256. A CUDA tensor
-launches the kernel on the current stream; a CPU tensor takes the plain
-version in :mod:`repro_torch.kernels.decode_attention.ref`. Nothing falls
-back from one to the other.
+padded: the kernel takes any C and any D up to 256. The cache is cut into
+the splits of :func:`split_plan`; one kernel attends over each split of
+each (b, kv head) and a second merges the splits' partial softmaxes from
+float32 scratch allocated here. A CUDA tensor launches the kernels on the
+current stream; a CPU tensor takes the plain version in
+:mod:`repro_torch.kernels.decode_attention.ref`. Nothing falls back from
+one to the other.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,6 +28,31 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 #: the kernel's entry point per input type
 ENTRY = {torch.float32: "decode_attention_f32", torch.bfloat16: "decode_attention_bf16"}
 MAX_HEAD_DIM = 256
+#: the fewest slots a split gets, so that a block has a few loads per warp
+MIN_SPLIT = 64
+#: blocks per SM the plan aims at
+BLOCKS_PER_SM = 2
+
+
+def split_plan(b: int, hkv: int, c: int, n_sm: int) -> Tuple[int, int]:
+    """(n_split, split): the cache's C slots cut into n_split consecutive
+    ranges of ``split`` slots (the last may be shorter), so that the
+    B * Hkv * n_split blocks give each of ``n_sm`` SMs at least
+    :data:`BLOCKS_PER_SM`, with at least :data:`MIN_SPLIT` slots a split.
+    n_split is a power of two before the minimum cuts it; no range is
+    empty unless C is 0, which gives (1, 0)."""
+    if c <= 0:
+        return 1, 0
+    want = -(-BLOCKS_PER_SM * n_sm // max(1, b * hkv))
+    n = 1 << max(0, want - 1).bit_length()
+    per = -(-c // n)
+    split = max(MIN_SPLIT, -(-per // 16) * 16)  # a multiple of 16 slots
+    return -(-c // split), split
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k, v, valid) -> None:
@@ -65,7 +95,8 @@ def decode_attention(
     """q (B, Hq, D), k/v (B, C, Hkv, D), valid (B, C) bool → (B, Hq, D).
 
     A row with no valid slot gives 0. ``decode_attention.launches`` counts
-    kernel launches."""
+    calls that ran on the card; each launches two kernels (the splits and
+    their combine)."""
     if valid is None:
         valid = torch.ones(k.shape[:2], dtype=torch.bool, device=k.device)
     _check(q, k, v, valid)
@@ -78,6 +109,10 @@ def decode_attention(
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    c, hkv = k.shape[1], k.shape[2]
+    n_split, split = split_plan(b, hkv, c, _sm_count(q.device.index or 0))
+    part_acc = torch.empty((n_split, b, hq, d), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((n_split, b, hq, 2), dtype=torch.float32, device=q.device)
     fn = getattr(_build.library("decode_attention"), ENTRY[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -87,11 +122,15 @@ def decode_attention(
             v.data_ptr(),
             valid.data_ptr(),
             out.data_ptr(),
+            part_acc.data_ptr(),
+            part_ml.data_ptr(),
             b,
-            k.shape[1],
+            c,
             hq,
-            k.shape[2],
+            hkv,
             d,
+            n_split,
+            split,
             float(softcap),
             float(scale),
             stream,
@@ -102,3 +141,16 @@ def decode_attention(
 
 
 decode_attention.launches = 0
+
+
+def kernel_attributes(dtype: torch.dtype, d: int, g: int) -> Dict[str, int]:
+    """Registers a thread, static and dynamic shared memory a block, and
+    local (spill) bytes a thread of the split kernel that a call in
+    ``dtype`` at head dim ``d`` and query group ``g`` launches
+    (``cudaFuncGetAttributes``); needs the card."""
+    out = (ctypes.c_int * 4)()
+    err = _build.library("decode_attention").decode_attention_attributes(
+        int(dtype == torch.bfloat16), d, g, out
+    )
+    _build.check(err, "decode_attention_attributes")
+    return dict(zip(("registers", "static_smem", "local_bytes", "dynamic_smem"), out))

@@ -8,7 +8,11 @@ installed:
 import pytest
 import torch
 
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_ref,
+    split_plan,
+)
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.kmeans import kmeans_assign, kmeans_assign_ref
 from repro_torch.kernels.kmeans.ref import kmeans_distances
@@ -169,6 +173,101 @@ def test_decode_attention_kernel_vs_plain(cuda, B, Hq, Hkv, C, D, cap, dtype):
     assert torch.equal(out[0], torch.zeros_like(out[0]))
     ref = decode_attention_ref(q, k, v, valid, softcap=cap)
     torch.testing.assert_close(out, ref, **TOL[dtype])
+
+
+def _flash_vs_plain(q, k, v, **kw):
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, again)  # deterministic: bit-identical reruns
+    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+    torch.testing.assert_close(out, ref.transpose(1, 2), **TOL[q.dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,Hq,Hkv,D,window,cap",
+    [
+        (1, 200, 4, 2, 8, 0, 0.0),  # D < 16: TMA zero-fills the columns
+        (1, 200, 4, 2, 40, 0, 0.0),
+        (1, 200, 4, 2, 72, 0, 0.0),
+        (2, 100, 4, 2, 20, 0, 0.0),  # D not a multiple of 8: the wrapper pads
+        (1, 1536, 16, 8, 256, 512, 50.0),  # gemma2-9b's heads; the window bites
+        (1, 1, 16, 8, 256, 0, 0.0),
+        (1, 77, 8, 8, 96, 30, 0.0),  # S not a multiple of the 64-row tile
+        (3, 300, 4, 2, 128, 100, 20.0),
+    ],
+)
+def test_flash_attention_tensor_core_cases(cuda, B, S, Hq, Hkv, D, window, cap, dtype):
+    q = _randn((B, S, Hq, D), S + D, dtype, cuda)
+    k = _randn((B, S, Hkv, D), S + D + 1, dtype, cuda)
+    v = _randn((B, S, Hkv, D), S + D + 2, dtype, cuda)
+    _flash_vs_plain(q, k, v, causal=True, window=window, softcap=cap)
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,C,D,mask",
+    [
+        (8, 16, 8, 2048, 128, "scattered"),
+        (8, 16, 8, 2048, 128, "split_hole"),  # a whole split invalid in valid rows
+        (2, 4, 2, 40, 128, "scattered"),  # C smaller than one split
+        (2, 4, 2, 333, 128, "split_hole"),  # C not a multiple of the split
+        (2, 8, 8, 300, 64, "scattered"),  # G = 1
+        (2, 16, 8, 300, 64, "scattered"),  # G = 2
+        (2, 8, 2, 300, 64, "scattered"),  # G = 4
+        (2, 12, 2, 300, 64, "scattered"),  # G = 6
+        (2, 16, 2, 300, 64, "scattered"),  # G = 8
+        (2, 32, 2, 300, 32, "scattered"),  # G = 16: two passes
+        (2, 4, 2, 300, 50, "scattered"),  # D without 16-byte loads
+        (2, 4, 2, 300, 256, "split_hole"),
+    ],
+)
+def test_decode_attention_split_cases(cuda, B, Hq, Hkv, C, D, mask, dtype):
+    q = _randn((B, Hq, D), C + D, dtype, cuda)
+    k = _randn((B, C, Hkv, D), C + D + 1, dtype, cuda)
+    v = _randn((B, C, Hkv, D), C + D + 2, dtype, cuda)
+    g = torch.Generator(device="cpu").manual_seed(C + Hq)
+    valid = torch.rand((B, C), generator=g) > 0.5  # scattered, not a prefix
+    n_split, split = split_plan(B, Hkv, C, _sm_count(cuda))
+    if mask == "split_hole":
+        assert n_split > 1
+        valid[:, split : 2 * split] = False
+    valid[0] = False  # an all-invalid row gives 0
+    valid = valid.to(cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, valid)
+    again = decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2  # calls, not kernels
+    assert torch.equal(out, again)  # deterministic: no atomics
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out, decode_attention_ref(q, k, v, valid), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_decode_split_plan_fills_the_card_at_the_serving_shape(cuda):
+    n_split, _ = split_plan(8, 8, 2048, _sm_count(cuda))
+    assert 8 * 8 * n_split > _sm_count(cuda)
+
+
+@pytest.mark.gpu
+def test_attention_kernel_attributes(cuda):
+    from repro_torch.kernels.decode_attention.ops import kernel_attributes as decode_attrs
+    from repro_torch.kernels.flash_attention.ops import kernel_attributes as flash_attrs
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for attrs in (flash_attrs(dtype, 128), decode_attrs(dtype, 128, 2)):
+            assert 0 < attrs["registers"] <= 255
+            assert attrs["local_bytes"] == 0  # no spills at the serving shape
 
 
 @pytest.mark.gpu
