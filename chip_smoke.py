@@ -14,7 +14,13 @@ Phases, each fatal on failure:
    (not multiples of 16 or 8), on scattered decode masks with a whole
    cache split invalid, and at C = 2000 (not a multiple of the split);
    each case runs twice and must give bit-identical output, and an
-   all-invalid decode row must be exactly 0;
+   all-invalid decode row must be exactly 0. The DS kernels run at the
+   path's shapes (window sums on x and on x*x) and at their edge cases:
+   for k-means an x[1:] view 12 bytes past an aligned allocation, N % 4 =
+   1, 2, 3, D = 1 and 4, K = 1 and K = 17 (just above the tiled kernel's
+   templates), and the general kernel's shapes; for the window S not a
+   multiple of a warp's 32-row chunk, S < w, C = 1, 3, 5, w = 33 and w = 1
+   for every agg. Each runs twice (bit-identical), and max is exact;
 4. the DS path: compose a VDC on ``cuda:0``, schedule the paper's 16-task
    DS workload with EFT over ``paper_pool()``, and execute 3 instances of
    500,000 × 8 float32 rows (seeds 0, 1, 2) through the port's quickstart
@@ -43,10 +49,14 @@ Phases, each fatal on failure:
    and spilled bytes (``cudaFuncGetAttributes``), the HGMMA and HMMA
    instructions in the flash library's SASS (``cuobjdump``, where the
    toolkit has it: a library without HGMMA fails the run), and the flash
-   kernel's share of the prefill time.
+   kernel's share of the prefill time. For the DS kernels their GB/s, the
+   registers, static shared memory and spills of every kernel instance
+   the path launches (a spill fails the run), and at one path shape a
+   graph of one call beside 20 back-to-back calls (the graph's own
+   launch). Every kernel's line gives its share of its bound.
 
-Prints the card line, a JSON line of the attention kernels' report and
-one JSON line of kernel results before the last line, which is
+Prints the card line, JSON lines of the attention and DS kernels' reports
+and one JSON line of kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing
 no result, when there is no CUDA card.
 """
@@ -113,50 +123,100 @@ def randn(shape, seed, device):
 # -- phase 3 -----------------------------------------------------------------
 
 
-def check_kmeans(dev):
+def _kmeans_case(x, c, label):
+    """The k-means kernel against its plain version on (x, c), twice: the
+    two runs must be bit-identical. Returns the largest |min_d2| deviation."""
     from repro_torch.kernels.kmeans import kmeans_assign, kmeans_assign_ref
+    from repro_torch.kernels.kmeans.ops import kmeans_plan
     from repro_torch.kernels.kmeans.ref import kmeans_distances
 
-    cases = [(ROWS, 2, k) for k in (2, 3, 4, 6)] + [(ROWS, 3, 4)]
-    extra = [(4097, 64, 300), (1000, 13_000, 3)]  # centroid chunks; uncached
-    worst = 0.0
-    for n, d, k in cases + extra:
-        x, c = randn((n, d), n + d, dev), randn((k, d), k, dev)
-        a, d2 = kmeans_assign(x, c)
-        torch.cuda.synchronize()
-        ar, d2r = kmeans_assign_ref(x, c)
+    (n, d), k = x.shape, c.shape[0]
+    plan = kmeans_plan(n, d, k, x.data_ptr())
+    a, d2 = kmeans_assign(x, c)
+    again = kmeans_assign(x, c)
+    torch.cuda.synchronize()
+    ar, d2r = kmeans_assign_ref(x, c)
+    if k > 1:
         two = kmeans_distances(x, c).topk(2, dim=1, largest=False).values
         near = (two[:, 1] - two[:, 0]) <= 1e-5 * two[:, 1].abs()
-        bad = int(((a != ar) & ~near).sum())
-        err = float((d2 - d2r).abs().max())
-        print(
-            f"kmeans_assign ({n}, {d}) x {k}: max |d2 - plain| {err:.3e}, "
-            f"{int(near.sum())} near-tie points, {bad} other assignment mismatches"
-        )
-        if bad:
-            raise AssertionError("kmeans_assign disagrees with its plain version")
-        torch.testing.assert_close(d2, d2r, rtol=1e-4, atol=1e-5)
-        if (n, d, k) in cases:
-            worst = max(worst, err)
+    else:
+        near = torch.zeros_like(a, dtype=torch.bool)
+    bad = int(((a != ar) & ~near).sum())
+    err = float((d2 - d2r).abs().max())
+    print(
+        f"kmeans_assign {label} ({n}, {d}) x {k} [{plan.variant}"
+        f"{'' if plan.variant == 'general' else ', 16-byte loads' if plan.vector else ', 4-byte loads'}]: "
+        f"max |d2 - plain| {err:.3e}, {int(near.sum())} near-tie points, "
+        f"{bad} other assignment mismatches"
+    )
+    if bad:
+        raise AssertionError("kmeans_assign disagrees with its plain version")
+    torch.testing.assert_close(d2, d2r, rtol=1e-4, atol=1e-5)
+    if not (torch.equal(a, again[0]) and torch.equal(d2, again[1])):
+        raise AssertionError(f"kmeans_assign {label}: two runs differ")
+    return err
+
+
+def check_kmeans(dev):
+    """The path's five shapes (the tiled kernel), its edge cases (an x[1:]
+    view 12 bytes past an aligned allocation, N % 4 = 1, 2, 3, D = 1 and 4,
+    K = 1 and K = 17, just above the templates), and the general kernel's
+    staged and uncached centroids."""
+    worst = 0.0
+    for n, d, k, _ in KMEANS_CALLS:
+        x, c = randn((n, d), n + d, dev), randn((k, d), k, dev)
+        worst = max(worst, _kmeans_case(x, c, "path"))
+    edges = [(ROWS, 3, 4, 1)] + [(ROWS + r, 2, 6, 0) for r in (1, 2, 3)]
+    edges += [(ROWS, 1, 5, 0), (ROWS, 4, 5, 0), (10_000, 3, 1, 0), (10_000, 3, 17, 0)]
+    edges += [(4097, 64, 300, 0), (1000, 13_000, 3, 0)]  # centroid chunks; uncached
+    for n, d, k, offset in edges:
+        x = randn((n + offset, d), n + d, dev)[offset:]
+        label = f"x[{offset}:]" if offset else "edge"
+        _kmeans_case(x, randn((k, d), k, dev), label)
     return worst
 
 
-def check_window(dev):
+def _window_case(x, w, agg, label):
+    """The window kernel against its plain version, twice (bit-identical
+    runs); max must be exact. Returns the largest deviation."""
     from repro_torch.kernels.window_agg import window_agg, window_agg_ref
+    from repro_torch.kernels.window_agg.ops import window_plan
 
-    cases = [(ROWS, 4, w, agg) for w in (8, 16) for agg in ("sum", "mean", "max")]
-    cases += [(ROWS + 3, 4, 16, agg) for agg in ("sum", "mean", "max")]  # ragged S
+    s, c = x.shape
+    plan = window_plan(s, c, w, agg, x.data_ptr())
+    out = window_agg(x, window=w, agg=agg)
+    again = window_agg(x, window=w, agg=agg)
+    torch.cuda.synchronize()
+    ref = window_agg_ref(x, window=w, agg=agg)
+    err = float((out - ref).abs().max())
+    print(f"window_agg {label} ({s}, {c}) w={w} {agg} [{plan.variant}]: max |out - plain| {err:.3e}")
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    if agg == "max" and err != 0:
+        raise AssertionError(f"window_agg {label}: max is not exact")
+    if not torch.equal(out, again):
+        raise AssertionError(f"window_agg {label}: two runs differ")
+    return err
+
+
+def check_window(dev):
+    """The path's shapes on x and on x*x (anomaly's second moment) for
+    every agg (the scan kernel), and edge cases: S not a multiple of 32 or
+    of a block's 1,024 rows, S < w, C = 1, 3, 5 and w = 33 (the general
+    kernel), and w = 1."""
     worst = 0.0
-    for s, c, w, agg in cases:
+    for w in (8, 16):
+        x = randn((ROWS, 4), ROWS + w, dev)
+        for agg in ("sum", "mean", "max"):
+            err = _window_case(x, w, agg, "path")
+            _window_case(x * x, w, agg, "path, x*x")
+            if agg == "mean":
+                worst = max(worst, err)
+    edges = [(ROWS + 3, 4, 16), (1007, 4, 8), (5, 4, 16), (3000, 4, 1), (3000, 4, 33)]
+    edges += [(3000, c, 8) for c in (1, 3, 5)] + [(3000, 3, 1)]
+    for s, c, w in edges:
         x = randn((s, c), s + w, dev)
-        out = window_agg(x, window=w, agg=agg)
-        torch.cuda.synchronize()
-        ref = window_agg_ref(x, window=w, agg=agg)
-        err = float((out - ref).abs().max())
-        print(f"window_agg ({s}, {c}) w={w} {agg}: max |out - plain| {err:.3e}")
-        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
-        if s == ROWS and agg == "mean":
-            worst = max(worst, err)
+        for agg in ("sum", "mean", "max"):
+            _window_case(x, w, agg, "edge")
     return worst
 
 
@@ -673,7 +733,8 @@ def time_kmeans(dev):
         flops += reps * 3 * n * k * d  # subtract, multiply, add
         n_calls += reps
     ms, plain_ms = graph_ms(kernel) / n_calls, graph_ms(plain) / n_calls
-    return ms, plain_ms, bound(nbytes / n_calls, flops / n_calls)
+    work = {"bytes": nbytes / n_calls, "flops": flops / n_calls}
+    return ms, plain_ms, bound(nbytes / n_calls, flops / n_calls), work
 
 
 def time_window(dev):
@@ -688,7 +749,8 @@ def time_window(dev):
         flops += reps * s * c * w  # w adds per output (the mean's divide aside)
         n_calls += reps
     ms, plain_ms = graph_ms(kernel) / n_calls, graph_ms(plain) / n_calls
-    return ms, plain_ms, bound(nbytes / n_calls, flops / n_calls)
+    work = {"bytes": nbytes / n_calls, "flops": flops / n_calls}
+    return ms, plain_ms, bound(nbytes / n_calls, flops / n_calls), work
 
 
 def time_flash(dev, cfg, lens):
@@ -770,6 +832,65 @@ def sass_counts(name):
         timeout=300,
     ).stdout
     return {op: sass.count(op) for op in ("HGMMA", "HMMA")}  # "HMMA" is not in "HGMMA"
+
+
+def ds_report(dev, timing, work):
+    """Per DS kernel: achieved GB/s and share of its bound over the path's
+    calls, and the registers, static shared memory and spills of each
+    kernel instance those calls launch (the path's tensors are fresh
+    allocations, so 16-byte aligned). Besides, at one path shape, the time
+    of a graph that holds one call and the time a call over 20
+    back-to-back calls: their difference is the graph's own launch, which
+    a pass over few calls (window_agg's 3) carries in its time a launch."""
+    from repro_torch.kernels.kmeans import kmeans_assign
+    from repro_torch.kernels.kmeans.ops import kernel_attributes as kmeans_attrs
+    from repro_torch.kernels.kmeans.ops import kmeans_plan
+    from repro_torch.kernels.window_agg import window_agg
+    from repro_torch.kernels.window_agg.ops import kernel_attributes as window_attrs
+    from repro_torch.kernels.window_agg.ops import window_plan
+
+    x2, c4 = randn((ROWS, 2), 1, dev), randn((4, 2), 2, dev)
+    x4 = randn((ROWS, 4), 3, dev)
+    alone = {
+        "kmeans_assign": ("(500000, 2) x 4", lambda: kmeans_assign(x2, c4)),
+        "window_agg": ("(500000, 4) w=16 mean", lambda: window_agg(x4, window=16, agg="mean")),
+    }
+
+    aligned = 1 << 20
+    instances = {"kmeans_assign": {}, "window_agg": {}}
+    for n, d, k, _ in KMEANS_CALLS:
+        plan = kmeans_plan(n, d, k, aligned)
+        instances["kmeans_assign"][f"{plan.variant} D={d} kmax={plan.kmax}"] = kmeans_attrs(plan, d)
+    for s, c, w, agg, _ in WINDOW_CALLS:
+        plan = window_plan(s, c, w, agg, aligned)
+        instances["window_agg"][f"{plan.variant} {agg}"] = window_attrs(plan, agg)
+    report = {}
+    for name, kernels in instances.items():
+        ms, _, (bound_ms, _), _ = timing[name]
+        shape, call = alone[name]
+        report[name] = {
+            "us": ms * 1e3,
+            "bound_us": bound_ms * 1e3,
+            "share_of_bound": bound_ms / ms,
+            "gb_per_s": work[name]["bytes"] / ms / 1e6,
+            "one_call_graph_us": graph_ms([call]) * 1e3,
+            "back_to_back_us": graph_ms([call] * 20) / 20 * 1e3,
+            "kernels": kernels,
+        }
+        print(
+            f"{name}: {ms * 1e3:.3f} us per launch (bound {bound_ms * 1e3:.3f} us, "
+            f"{bound_ms / ms:.1%} of it); {report[name]['gb_per_s']:.1f} GB/s; at {shape} "
+            f"a graph of one call {report[name]['one_call_graph_us']:.3f} us, "
+            f"{report[name]['back_to_back_us']:.3f} us a call over 20 back-to-back; "
+            + "; ".join(
+                f"{key}: {a['registers']} registers, {a['static_smem']} B static shared "
+                f"memory, {a['local_bytes']} B spilled"
+                for key, a in kernels.items()
+            )
+        )
+        if any(a["local_bytes"] for a in kernels.values()):
+            raise AssertionError(f"{name}: a kernel of the path spills")
+    return report
 
 
 def attention_report(cfg, timing, work):
@@ -854,10 +975,13 @@ def main() -> int:
     print(f"serving phase: {time.perf_counter() - t0:.3f} s")
 
     phase("6. timing")
+    km_ms, km_plain, km_bound, km_work = time_kmeans(dev)
+    win_ms, win_plain, win_bound, win_work = time_window(dev)
     timing = {
-        "kmeans_assign": time_kmeans(dev) + (None,),
-        "window_agg": time_window(dev) + (None,),
+        "kmeans_assign": (km_ms, km_plain, km_bound, None),
+        "window_agg": (win_ms, win_plain, win_bound, None),
     }
+    ds = ds_report(dev, timing, {"kmeans_assign": km_work, "window_agg": win_work})
     flash_ms, flash_plain, flash_lib, flash_bound, flash_work = time_flash(dev, cfg, lens)
     timing["flash_attention"] = (flash_ms, flash_plain, flash_bound, flash_lib)
     dec_ms, dec_plain, dec_lib, dec_bound, dec_work = time_decode(dev, cfg, valid)
@@ -873,6 +997,7 @@ def main() -> int:
         f"prompts, {flash_total / prefill_ms:.1%} of the {prefill_ms:.3f} ms of prefill"
     )
     print(f"attention kernels: {json.dumps(attn)}")
+    print(f"DS kernels: {json.dumps(ds)}")
     meta = {
         "kmeans_assign": (
             "src/repro_torch/csrc/kmeans_assign.cu",
@@ -896,7 +1021,8 @@ def main() -> int:
         lib = "" if library_ms is None else f", library {library_ms * 1e3:.3f} us"
         print(
             f"{name}: {ms * 1e3:.3f} us per launch (plain {plain_ms * 1e3:.3f} us{lib}, "
-            f"bound {bound_ms * 1e3:.3f} us by {bound_by}), over its path's calls"
+            f"bound {bound_ms * 1e3:.3f} us by {bound_by}, {bound_ms / ms:.1%} of it), "
+            f"over its path's calls"
         )
         rows.append(
             {

@@ -38,8 +38,16 @@ _FLASH = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 _DECODE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 #: C signatures of each library's entry points: {symbol: argtypes}
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "kmeans_assign": {"kmeans_assign_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P]},
-    "window_agg": {"window_agg_f32": [_P, _P, _I, _I, _I, _I, _I, _P]},
+    "kmeans_assign": {
+        "kmeans_assign_tiled_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "kmeans_assign_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "kmeans_assign_attributes": [_I, _I, _I, _I, _P],
+    },
+    "window_agg": {
+        "window_agg_scan_f32": [_P, _P, _I, _I, _I, _I, _P],
+        "window_agg_f32": [_P, _P, _I, _I, _I, _I, _I, _P],
+        "window_agg_attributes": [_I, _I, _P],
+    },
     "flash_attention": {
         "flash_attention_f32": _FLASH,
         "flash_attention_bf16": _FLASH,

@@ -1,11 +1,16 @@
-"""Wrapper of the sliding-window aggregation kernel (``csrc/window_agg.cu``).
+"""Wrapper of the sliding-window aggregation kernels (``csrc/window_agg.cu``).
 
-A CUDA tensor launches the kernel on the current stream; a CPU tensor takes
-the plain version in :mod:`repro_torch.kernels.window_agg.ref`. Nothing
-falls back from one to the other.
+A CUDA tensor launches one of the two kernels on the current stream, the one
+:func:`window_plan` picks by shape and alignment; a CPU tensor takes the
+plain version in :mod:`repro_torch.kernels.window_agg.ref`. Nothing falls
+back from one to the other.
 """
 
 from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Dict
 
 import torch
 
@@ -15,13 +20,33 @@ from repro_torch.kernels.window_agg.ref import window_agg_ref
 AGGS = {"sum": 0, "mean": 1, "max": 2}
 #: shared memory a block may use on Hopper (227 KB, opt-in above 48 KB)
 SMEM_BYTES = 232_448
-#: elements a block aims to own (8 per thread of 256)
+#: elements a block of the general kernel aims to own (8 per thread of 256)
 TILE_ELEMS = 2048
+#: the scan kernel: the C it is built for (one float4 a row), its largest
+#: window (two 32-row chunks), and the rows a block walks (4 warps of 8
+#: chunks of 32 rows)
+SCAN_COLS = 4
+SCAN_MAX_WINDOW = 32
+SCAN_BLOCK_ROWS = 4 * 8 * 32
+
+
+@dataclass(frozen=True)
+class WindowPlan:
+    """Which kernel a call launches and how: ``"scan"`` (C = 4, w <= 32,
+    in registers) or ``"general"`` (``tile_rows`` rows and their halo a
+    block in shared memory). ``w`` is the window clamped to [1, S];
+    ``blocks`` is the grid."""
+
+    variant: str
+    w: int
+    blocks: int
+    tile_rows: int = 0
 
 
 def tile_rows(s: int, c: int, w: int) -> int:
-    """Rows per block: about :data:`TILE_ELEMS` outputs, fewer when the
-    tile plus its ``w - 1`` halo rows would not fit in shared memory.
+    """Rows per block of the general kernel: about :data:`TILE_ELEMS`
+    outputs, fewer when the tile plus its ``w - 1`` halo rows would not fit
+    in shared memory.
 
     Raises when even a one-row tile's halo does not fit: the counterpart of
     the TPU kernel's ``window <= block_s`` precondition."""
@@ -34,6 +59,19 @@ def tile_rows(s: int, c: int, w: int) -> int:
     return max(1, min(s, TILE_ELEMS // c, fit))
 
 
+def window_plan(s: int, c: int, window: int, agg: str, x_ptr: int) -> WindowPlan:
+    """The kernel for x (``s``, ``c``) at address ``x_ptr``: the scan one
+    for C = 4, a window of at most 32 rows and a 16-byte aligned x; the
+    general one beyond, which raises when its halo does not fit."""
+    if agg not in AGGS:
+        raise ValueError(f"unknown agg {agg!r}")
+    w = max(1, min(window, s))
+    if c == SCAN_COLS and w <= SCAN_MAX_WINDOW and x_ptr % 16 == 0:
+        return WindowPlan("scan", w, blocks=-(-s // SCAN_BLOCK_ROWS))
+    rows = tile_rows(s, max(c, 1), w)
+    return WindowPlan("general", w, blocks=-(-s // rows), tile_rows=rows)
+
+
 def window_agg(x: torch.Tensor, *, window: int, agg: str = "mean") -> torch.Tensor:
     """x (S, C) float32 → (S, C): causal sliding-window sum, mean or max.
 
@@ -42,27 +80,44 @@ def window_agg(x: torch.Tensor, *, window: int, agg: str = "mean") -> torch.Tens
         raise ValueError(f"window_agg wants x (S, C), got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError(f"window_agg wants float32, got {x.dtype}")
-    if agg not in AGGS:
-        raise ValueError(f"unknown agg {agg!r}")
     if not x.is_contiguous():
         raise ValueError("window_agg wants a contiguous x")
     s, c = x.shape
-    w = max(1, min(window, s))
-    rows = tile_rows(s, max(c, 1), w)
+    plan = window_plan(s, c, window, agg, x.data_ptr())
     if x.device.type == "cpu":
-        return window_agg_ref(x, window=w, agg=agg)
+        return window_agg_ref(x, window=plan.w, agg=agg)
     if x.device.type != "cuda":
         raise ValueError(f"window_agg runs on cuda or cpu, not {x.device}")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    fn = _build.library("window_agg").window_agg_f32
+    lib = _build.library("window_agg")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), s, c, w, AGGS[agg], rows, stream)
+        if plan.variant == "scan":
+            err = lib.window_agg_scan_f32(
+                x.data_ptr(), out.data_ptr(), s, plan.w, AGGS[agg], plan.blocks, stream
+            )
+        else:
+            err = lib.window_agg_f32(
+                x.data_ptr(), out.data_ptr(), s, c, plan.w, AGGS[agg], plan.tile_rows, stream
+            )
     _build.check(err, "window_agg")
     window_agg.launches += 1
     return out
 
 
 window_agg.launches = 0
+
+
+def kernel_attributes(plan: WindowPlan, agg: str) -> Dict[str, int]:
+    """Registers a thread, static shared memory a block and local (spill)
+    bytes a thread of the kernel ``plan`` launches for ``agg``
+    (``cudaFuncGetAttributes``; the general kernel's shared memory is
+    dynamic, ``(tile_rows + w - 1) * C`` floats); needs the card."""
+    out = (ctypes.c_int * 3)()
+    err = _build.library("window_agg").window_agg_attributes(
+        int(plan.variant == "scan"), AGGS[agg], out
+    )
+    _build.check(err, "window_agg_attributes")
+    return dict(zip(("registers", "static_smem", "local_bytes"), out))

@@ -75,6 +75,96 @@ def test_window_agg_kernel_vs_plain(cuda, S, C, w, agg):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize(
+    "N,D,K,offset,variant",
+    [
+        (500_000, 3, 4, 1, "tiled"),  # x[1:]: 12 bytes past, scalar loads
+        (500_001, 2, 6, 0, "tiled"),  # N % 4 = 1, 2, 3: the ragged tail
+        (500_002, 2, 6, 0, "tiled"),
+        (500_003, 2, 6, 0, "tiled"),
+        (7, 3, 4, 0, "tiled"),
+        (100_000, 1, 5, 0, "tiled"),
+        (100_000, 4, 5, 0, "tiled"),
+        (10_000, 3, 1, 0, "tiled"),
+        (10_000, 3, 16, 0, "tiled"),
+        (10_000, 3, 17, 0, "general"),  # just above the templates' maximum
+    ],
+)
+def test_kmeans_assign_kernel_edge_cases(cuda, N, D, K, offset, variant):
+    """Each case twice: bit-identical runs, and the plain version's answer."""
+    from repro_torch.kernels.kmeans.ops import kmeans_plan
+
+    g = torch.Generator(device="cpu").manual_seed(N + D + K)
+    x = torch.randn((N + offset, D), generator=g).to(cuda)[offset:]
+    c = torch.randn((K, D), generator=g).to(cuda)
+    assert kmeans_plan(N, D, K, x.data_ptr()).variant == variant
+    a, d2 = kmeans_assign(x, c)
+    a2, d22 = kmeans_assign(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a2) and torch.equal(d2, d22)
+    ar, d2r = kmeans_assign_ref(x, c)
+    differ = a != ar
+    if K > 1:
+        two = kmeans_distances(x, c).topk(2, dim=1, largest=False).values
+        differ &= (two[:, 1] - two[:, 0]) > 1e-5 * two[:, 1].abs()
+    assert not differ.any()
+    torch.testing.assert_close(d2, d2r, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["sum", "mean", "max"])
+@pytest.mark.parametrize(
+    "S,C,w,variant",
+    [
+        (500_003, 4, 16, "scan"),  # S % 32 != 0 and S % 1024 != 0
+        (1007, 4, 8, "scan"),
+        (255, 4, 32, "scan"),
+        (5, 4, 16, "scan"),  # S < w: the window clamps to S
+        (3000, 1, 8, "general"),
+        (3000, 3, 8, "general"),
+        (3000, 5, 8, "general"),
+        (3000, 4, 1, "scan"),  # w = 1
+        (3000, 3, 1, "general"),
+        (3000, 4, 33, "general"),
+    ],
+)
+def test_window_agg_kernel_edge_cases(cuda, S, C, w, variant, agg):
+    """Each case twice: bit-identical runs; max equals the plain version
+    exactly, sum and mean within 1e-4."""
+    from repro_torch.kernels.window_agg.ops import window_plan
+
+    g = torch.Generator(device="cpu").manual_seed(S + C + w)
+    x = torch.randn((S, C), generator=g).to(cuda)
+    assert window_plan(S, C, w, agg, x.data_ptr()).variant == variant
+    out = window_agg(x, window=w, agg=agg)
+    again = window_agg(x, window=w, agg=agg)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = window_agg_ref(x, window=w, agg=agg)
+    if agg == "max":
+        assert torch.equal(out, ref)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ds_kernel_attributes(cuda):
+    from repro_torch.kernels.kmeans.ops import kernel_attributes as kmeans_attrs
+    from repro_torch.kernels.kmeans.ops import kmeans_plan
+    from repro_torch.kernels.window_agg.ops import kernel_attributes as window_attrs
+    from repro_torch.kernels.window_agg.ops import window_plan
+
+    aligned = 1 << 20
+    for d, k in ((2, 6), (3, 4), (64, 300)):
+        for ptr in (aligned, aligned + 4):
+            attrs = kmeans_attrs(kmeans_plan(500_000, d, k, ptr), d)
+            assert 0 < attrs["registers"] <= 255 and attrs["local_bytes"] == 0
+    for c, w in ((4, 16), (4, 1), (5, 8)):
+        for agg in ("sum", "mean", "max"):
+            attrs = window_attrs(window_plan(500_000, c, w, agg, aligned), agg)
+            assert 0 < attrs["registers"] <= 255 and attrs["local_bytes"] == 0
+
+
+@pytest.mark.gpu
 def test_cuda_tensors_never_take_the_plain_version(cuda):
     before = (kmeans_assign.launches, window_agg.launches)
     x = torch.zeros((64, 8), device=cuda)
