@@ -20,7 +20,11 @@ Phases, each fatal on failure:
    1, 2, 3, D = 1 and 4, K = 1 and K = 17 (just above the tiled kernel's
    templates), and the general kernel's shapes; for the window S not a
    multiple of a warp's 32-row chunk, S < w, C = 1, 3, 5, w = 33 and w = 1
-   for every agg. Each runs twice (bit-identical), and max is exact;
+   for every agg. Each runs twice (bit-identical), and max is exact. The
+   inputs the JAX wrappers take beyond the path's: column slices (copied
+   before launch), a window whose halo is over shared memory ((300, 1000)
+   at w = 100: the global window kernel), head dim 288 for flash and
+   decode (their wide kernels) and transposed attention inputs;
 4. the DS path: compose a VDC on ``cuda:0``, schedule the paper's 16-task
    DS workload with EFT over ``paper_pool()``, and execute 3 instances of
    500,000 × 8 float32 rows (seeds 0, 1, 2) through the port's quickstart
@@ -53,12 +57,33 @@ Phases, each fatal on failure:
    registers, static shared memory and spills of every kernel instance
    the path launches (a spill fails the run), and at one path shape a
    graph of one call beside 20 back-to-back calls (the graph's own
-   launch). Every kernel's line gives its share of its bound.
+   launch). Every kernel's line gives its share of its bound. Then the
+   kernels' variants off the main path (the global window kernel, the
+   wide flash and decode kernels at D = 288), each beside its plain
+   version and its bound;
+7. the gateway path: the port's ``ServingGateway`` plans a 64-request
+   trace (``synth_requests(64, seed=0, mean_gap=0.2)``, prompts of the
+   trace's bucket lengths with tokens from numpy's default_rng(0)) on
+   the host, 8 slots, and its plan must equal the reference gateway's:
+   the pinned assignment digest, completions, sheds, preemptions,
+   goodput, makespan and kept tokens (``tests/test_torch_gateway.py``
+   holds the pins to the JAX package, which this machine lacks). The
+   plan is replayed through ``ServingGateway.serve`` into a
+   ``ServeEngine`` on the card (qwen3-0.6b at full width, phase 5's
+   weights, fcfs in plan order): the engine must admit the requests in
+   plan order, finish every kept request with ``max_new_tokens + 1``
+   tokens, and the attention kernels' launches, counted for this run
+   alone, must equal 28 per prefill and 28 per decode tick. The plan's
+   first 8 requests are served again with plain attention: bf16 prefill
+   logits within twice phase 5's plain spread, and in float32 compute
+   (kernels and plain) logits within 2e-4 and token streams equal up to
+   each request's first near tie.
 
 Prints the card line, JSON lines of the attention and DS kernels' reports
 and one JSON line of kernel results before the last line, which is
-``{"ok": true, "device": {...}}``. Exits non-zero, printing
-no result, when there is no CUDA card.
+``{"ok": true, "device": {...}}``. In that line, the DS kernels' launches
+are phase 4's and the attention kernels' phase 7's (phase 5's are printed
+above it). Exits non-zero, printing no result, when there is no CUDA card.
 """
 
 from __future__ import annotations
@@ -98,6 +123,39 @@ SERVE_ENGINE = {"max_batch": 8, "max_seq": 2048, "policy": "eft"}
 SERVE_REQUESTS = 16
 BF16_TOL = 2e-2
 F32_TOL = 2e-4
+#: the gateway path (phase 7): the engine and gateway of
+#: benchmarks/bench_gateway.py's smoke setup at 8 slots, the trace size,
+#: and the plan the reference gateway makes of it (held to the JAX package
+#: by tests/test_torch_gateway.py)
+GATEWAY_ENGINE = {
+    "policy": "fcfs",
+    "max_batch": 8,
+    "max_seq": 2048,
+    "prefill_cost_per_tok": 2e-4,
+    "decode_cost_per_tok": 0.02,
+}
+GATEWAY = {
+    "window_s": 2.0,
+    "shed_backlog_s": 3.0,
+    "preempt_backlog_s": 2.0,
+    "max_preempt_probes_per_window": 4,
+}
+GATEWAY_REQUESTS = 64
+GATEWAY_PINS = {
+    "digest": "84902bc58607d19a7d892c5ee6e6c15eaaf444125ce5a50cbc7fb5b5abde778c",
+    "n_completed": 60,
+    "n_shed": 4,
+    "n_preemptions": 6,
+    "goodput": 0.9614691740562925,
+    "makespan": 24.65756299404881,
+    "prompt_tokens": 6624,
+    "decode_tokens": 4016,
+}
+#: requests of the plan served again with plain attention
+GATEWAY_CHECKED = 8
+#: the variants' shapes: the window over shared memory, head dim 288
+WIDE_WINDOW = (300, 1000, 100)
+WIDE_HEAD_DIM = 288
 
 
 def phase(name):
@@ -173,6 +231,7 @@ def check_kmeans(dev):
         x = randn((n + offset, d), n + d, dev)[offset:]
         label = f"x[{offset}:]" if offset else "edge"
         _kmeans_case(x, randn((k, d), k, dev), label)
+    _kmeans_case(randn((ROWS, 8), 8, dev)[:, :2], randn((6, 2), 6, dev), "x[:, :2]")
     return worst
 
 
@@ -217,6 +276,11 @@ def check_window(dev):
         x = randn((s, c), s + w, dev)
         for agg in ("sum", "mean", "max"):
             _window_case(x, w, agg, "edge")
+    s, c, w = WIDE_WINDOW
+    x, cols = randn((s, c), s, dev), randn((ROWS, 8), 4, dev)[:, :4]
+    for agg in ("sum", "mean", "max"):
+        _window_case(x, w, agg, "halo over shared memory")
+        _window_case(cols, 8, agg, "x[:, :4]")
     return worst
 
 
@@ -297,6 +361,13 @@ def check_flash(dev, cfg, lens):
     for d in (72, 100):
         q, k, v = attention_inputs(dataclasses.replace(cfg, head_dim=d), 829, d, dev)
         _flash_case(q, k, v, f"D={d}", causal=True)
+    wide = dataclasses.replace(cfg, head_dim=WIDE_HEAD_DIM)
+    q, k, v = attention_inputs(wide, 300, 11, dev)
+    _flash_case(q, k, v, f"D={WIDE_HEAD_DIM} (wide)", causal=True, window=128, softcap=30.0)
+    _flash_case(*(t.float() for t in (q, k, v)), f"D={WIDE_HEAD_DIM} (wide)", causal=True)
+    q, k, v = attention_inputs(cfg, 829, 12, dev)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)  # (B, S, H, D) strides of (B, H, S, D)
+    _flash_case(qt, k, v, "transposed q", causal=True)
     return worst
 
 
@@ -351,6 +422,12 @@ def check_decode(dev, cfg, valid):
     q2, k2, v2 = attention_inputs(cfg, 1, 9, dev, b=b, c=c2)
     ragged = (torch.rand((b, c2), generator=g) > 0.3).to(dev)
     _decode_case(q2, k2, v2, ragged, f"C={c2}")
+    wide = dataclasses.replace(cfg, head_dim=WIDE_HEAD_DIM)
+    qw, kw, vw = attention_inputs(wide, 1, 13, dev, b=b, c=c)
+    _decode_case(qw, kw, vw, scattered.to(dev), f"D={WIDE_HEAD_DIM} (wide), scattered")
+    _decode_case(*(t.float() for t in (qw, kw, vw)), empty, f"D={WIDE_HEAD_DIM} (wide)")
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)  # a (B, Hkv, C, D) cache's view
+    _decode_case(q, kt, v, valid, "transposed k")
     return worst
 
 
@@ -461,26 +538,33 @@ def _top2_gap(logits):
 
 
 class ServeRun:
-    """Serves the trace through a ``ServeEngine`` and records, besides the
+    """Serves the trace through a ``ServeEngine`` (phase 5's, or
+    ``engine``, which a caller may fill itself) and records, besides the
     engine's own bookkeeping, each prefill's and decode tick's host time
-    (the card synchronised), every request's prefill logits, and per
-    emitted token the gap between the two largest logits behind it."""
+    (the card synchronised), the order of admissions, every request's
+    prefill logits, and per emitted token the gap between the two largest
+    logits behind it. Requests get ``rids``, by default their trace
+    positions."""
 
-    def __init__(self, cfg, params, trace, plain):
+    def __init__(self, cfg, params, trace, plain, engine=None, rids=None):
         from repro_torch.serve import EngineConfig, RequestSpec, ServeEngine
 
-        self.eng = ServeEngine(
-            cfg, params, EngineConfig(**SERVE_ENGINE, plain_attention=plain)
-        )
-        for rid, (prompt, n_new, arrival) in enumerate(trace):
+        if engine is None:
+            engine = ServeEngine(
+                cfg, params, EngineConfig(**SERVE_ENGINE, plain_attention=plain)
+            )
+        self.eng = engine
+        rids = range(len(trace)) if rids is None else rids
+        for rid, (prompt, n_new, arrival) in zip(rids, trace, strict=True):
             self.eng.submit(
                 RequestSpec(rid=rid, prompt=prompt, max_new_tokens=n_new, arrival=arrival)
             )
         self.prefill_s = self.decode_s = 0.0
         self.prefill_tokens = self.decode_ticks = 0
         self.prefill_logits, self.gaps = {}, defaultdict(list)
+        self.admitted = []
         self._last = None
-        prefill, decode = self.eng._prefill, self.eng._decode
+        prefill, decode, step = self.eng._prefill, self.eng._decode, self.eng.step
 
         def timed_prefill(params, tokens, caches):
             t0 = time.perf_counter()
@@ -503,19 +587,30 @@ class ServeRun:
                     self.gaps[r.rid].append(float(gap[b]))
             return nxt, logits, caches
 
+        def recorded_step():
+            out = step()
+            rid = out["admitted"]
+            if rid is not None:  # its prefill ran this tick, before the decode
+                self.admitted.append(rid)
+                self.prefill_logits[rid] = self._last.float().cpu()
+                self.gaps[rid].insert(0, float(_top2_gap(self._last)))
+            return out
+
         self.eng._prefill, self.eng._decode = timed_prefill, timed_decode
+        self.eng.step = recorded_step
 
     def run(self, max_ticks=100_000):
         eng = self.eng
         t0 = time.perf_counter()
         while (eng.queue or any(s is not None for s in eng.slots)) and eng.ticks < max_ticks:
-            rid = eng.step()["admitted"]
-            if rid is not None:  # its prefill ran this tick, before the decode
-                self.prefill_logits[rid] = self._last.float().cpu()
-                self.gaps[rid].insert(0, float(_top2_gap(self._last)))
-        self.wall = time.perf_counter() - t0
-        self.done = {r.rid: r for r in eng.finished}
-        self.ticks, self.latency = eng.ticks, eng.latency_stats()
+            eng.step()
+        return self.finish(time.perf_counter() - t0)
+
+    def finish(self, wall):
+        """Read the engine's records after a run of ``wall`` host seconds."""
+        self.wall = wall
+        self.done = {r.rid: r for r in self.eng.finished}
+        self.ticks, self.latency = self.eng.ticks, self.eng.latency_stats()
         return self
 
 
@@ -550,15 +645,15 @@ def run_serving(dev, cfg, trace):
     tick = profile_decode(cfg, params, trace)
     plain = ServeRun(cfg, params, trace, plain=True).run()
     plain.eng = None
-    check_lengths(main, trace)
-    check_lengths(plain, trace)
+    check_lengths(main, len(trace))
+    check_lengths(plain, len(trace))
 
     # bf16: the kernels' order of summation against the plain version's,
     # beside the plain version against itself in another order (its KV
     # chunk at 128, not 1024): rounding to bf16 in 28 layers parts two
     # orders of the same sums by more than 2e-2 in the logits
     spread = plain_spread(cfg, params, trace, plain.prefill_logits)
-    err = compare_runs(main, plain, trace, None)
+    err = compare_runs(main, plain, None)
     print(
         f"bf16: max |prefill logits, kernels - plain| {max(err):.3e}; "
         f"the plain version in two orders of summation: {max(spread):.3e}"
@@ -571,8 +666,8 @@ def run_serving(dev, cfg, trace):
     runs32 = [ServeRun(cfg32, params, trace, plain=p).run() for p in (False, True)]
     for r in runs32:
         r.eng = None
-        check_lengths(r, trace)
-    err32 = compare_runs(*runs32, trace, F32_TOL)
+        check_lengths(r, len(trace))
+    err32 = compare_runs(*runs32, F32_TOL)
     print(f"float32: max |prefill logits, kernels - plain| {max(err32):.3e} (bound {F32_TOL})")
 
     stats = {}
@@ -591,7 +686,8 @@ def run_serving(dev, cfg, trace):
         print(f"serving ({name} attention): {json.dumps(stats[name])}")
     print(f"engine latency stats: {json.dumps(main.latency)}")
     stats["decode_tick_profile"] = tick
-    return launches, stats, {"bf16": max(err), "bf16_plain_spread": max(spread), "float32": max(err32)}
+    errs = {"bf16": max(err), "bf16_plain_spread": max(spread), "float32": max(err32)}
+    return launches, stats, errs, params
 
 
 def profile_decode(cfg, params, trace, ticks=3):
@@ -630,24 +726,29 @@ def profile_decode(cfg, params, trace, ticks=3):
     return {"host_ms": host_ms, "device_ms": device_ms, "kernels_per_tick": launches}
 
 
-def check_lengths(run, trace):
-    for rid, (_, n_new, _) in enumerate(trace):
-        out = run.done[rid].output
-        if len(out) != n_new + 1:
-            raise AssertionError(f"request {rid}: {len(out)} tokens, not {n_new + 1}")
-        logits = run.prefill_logits[rid]
-        if not torch.isfinite(logits).all():
+def check_lengths(run, n_requests):
+    """Every one of ``n_requests`` finished, with its ``max_new_tokens + 1``
+    tokens and finite prefill logits."""
+    if len(run.done) != n_requests:
+        raise AssertionError(f"{len(run.done)} requests finished, not {n_requests}")
+    for rid, r in run.done.items():
+        if len(r.output) != r.max_new_tokens + 1:
+            raise AssertionError(
+                f"request {rid}: {len(r.output)} tokens, not {r.max_new_tokens + 1}"
+            )
+        if not torch.isfinite(run.prefill_logits[rid]).all():
             raise AssertionError(f"request {rid}: prefill logits not finite")
 
 
-def compare_runs(kern, plain, trace, tol):
-    """Per request: the largest prefill-logit difference, and the token
-    position up to which the streams agree beside the first position where
-    the plain run's top two logits lie within ``tol`` (a near tie). With a
-    ``tol``, logits must agree within it and the streams up to the first
-    near tie."""
+def compare_runs(kern, plain, tol):
+    """Per request of the plain run: the largest prefill-logit difference,
+    and the token position up to which the streams agree beside the first
+    position where the plain run's top two logits lie within ``tol`` (a
+    near tie). With a ``tol``, logits must agree within it and the streams
+    up to the first near tie."""
     errs = []
-    for rid, (prompt, _, _) in enumerate(trace):
+    for rid in sorted(plain.done):
+        prompt = plain.done[rid].prompt
         got, ref = kern.done[rid].output, plain.done[rid].output
         logits, ref_logits = kern.prefill_logits[rid], plain.prefill_logits[rid]
         errs.append(float((logits - ref_logits).abs().max()))
@@ -681,6 +782,152 @@ def plain_spread(cfg, params, trace, logits):
         got, _ = M.prefill(other, cast, toks, caches, plain_attention=True)
         out.append(float((got[0].float().cpu() - logits[rid]).abs().max()))
     return out
+
+
+# -- phase 7 -----------------------------------------------------------------
+
+
+def gateway_trace(synth_requests, request_spec, vocab):
+    """The gateway trace: ``synth_requests(64, seed=0, mean_gap=0.2)`` of a
+    package, each prompt an int32 array of its bucket length with tokens
+    uniform in [2, vocab) from numpy's default_rng(0). The plan reads
+    prompt lengths only, so the arrays leave it as the bare counts make it."""
+    rng = np.random.default_rng(0)
+    out = []
+    for s in synth_requests(GATEWAY_REQUESTS, seed=0, mean_gap=0.2):
+        prompt = rng.integers(2, vocab, size=s.prompt_len).astype(np.int32)
+        out.append(
+            request_spec(
+                rid=s.rid,
+                prompt=prompt,
+                max_new_tokens=s.max_new_tokens,
+                arrival=s.arrival,
+                tier=s.tier,
+                curve=s.curve,
+            )
+        )
+    return out
+
+
+def gateway_pins(gw, report):
+    """The planned run's numbers that :data:`GATEWAY_PINS` holds."""
+    kept = [gw.specs[rid] for _, rid in gw.plan_order()]
+    return {
+        "digest": report.digest,
+        "n_completed": report.n_completed,
+        "n_shed": report.n_shed,
+        "n_preemptions": report.n_preemptions,
+        "goodput": report.goodput,
+        "makespan": report.makespan,
+        "prompt_tokens": sum(s.prompt_len for s in kept),
+        "decode_tokens": sum(s.max_new_tokens for s in kept),
+    }
+
+
+def run_gateway(dev, cfg, params, bf16_spread):
+    """Plan the gateway trace on the host, hold the plan to its pins,
+    replay it on the card through the kernels, and serve the plan's first
+    requests again with plain attention (bf16, then float32 compute)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serve import (
+        EngineConfig,
+        GatewayConfig,
+        RequestSpec,
+        ServeEngine,
+        ServingGateway,
+        synth_requests,
+    )
+
+    ecfg = EngineConfig(**GATEWAY_ENGINE)
+    specs = gateway_trace(synth_requests, RequestSpec, cfg.vocab_size)
+    t0 = time.perf_counter()
+    gw = ServingGateway(GatewayConfig(ecfg=ecfg, **GATEWAY))
+    report = gw.run(specs)
+    plan_s = time.perf_counter() - t0
+    pins = gateway_pins(gw, report)
+    attainment = {tier: row["attainment"] for tier, row in report.per_tier.items()}
+    print(
+        f"gateway plan: {len(specs)} requests planned in {plan_s:.3f} s on the host; "
+        f"{report.n_completed} kept, {report.n_shed} shed, {report.n_preemptions} "
+        f"preemptions, goodput {report.goodput:.4f}, makespan {report.makespan:.4f}; "
+        f"attainment {json.dumps(attainment)}; {pins['prompt_tokens']} prompt and "
+        f"{pins['decode_tokens']} decode tokens kept"
+    )
+    if pins != GATEWAY_PINS:
+        raise AssertionError(f"the gateway's plan {pins} is not the pinned {GATEWAY_PINS}")
+    order = [rid for _, rid in gw.plan_order()]
+
+    run = ServeRun(cfg, params, [], plain=False, engine=ServeEngine(cfg, params, ecfg))
+    flash_attention.launches = decode_attention.launches = 0
+    t0 = time.perf_counter()
+    stats = gw.serve(run.eng)
+    run.finish(time.perf_counter() - t0)
+    launches = {
+        "flash_attention": flash_attention.launches,
+        "decode_attention": decode_attention.launches,
+    }
+    print(f"launches on the gateway path: {launches}")
+    if run.admitted != order:
+        raise AssertionError("the engine did not admit the requests in plan order")
+    if stats["n"] != report.n_completed:
+        raise AssertionError(f"the engine finished {stats['n']}, the plan kept {report.n_completed}")
+    check_lengths(run, len(order))
+    want = {
+        "flash_attention": cfg.n_layers * len(run.admitted),
+        "decode_attention": cfg.n_layers * run.decode_ticks,
+    }
+    if launches != want:
+        raise AssertionError(f"the replay implies {want} launches, the run made {launches}")
+    tokens = sum(len(r.output) for r in run.done.values())
+    replay = {
+        "plan_s": plan_s,
+        "wall_s": run.wall,
+        "prefills": len(run.admitted),
+        "decode_ticks": run.decode_ticks,
+        "engine_ticks": run.ticks,
+        "tokens": tokens,
+        "prefill_ms_per_token": run.prefill_s * 1e3 / run.prefill_tokens,
+        "decode_ms_per_tick": run.decode_s * 1e3 / run.decode_ticks,
+        "tokens_per_s": tokens / run.wall,
+        "goodput": report.goodput,
+        "n_shed": report.n_shed,
+        "n_preemptions": report.n_preemptions,
+        "attainment": attainment,
+    }
+    print(f"gateway replay: {json.dumps(replay)}")
+    print(f"engine latency stats: {json.dumps(run.latency)}")
+
+    # the plan's first requests again with plain attention, at their plan
+    # ranks; rows of the batch are computed independently, so each one's
+    # stream does not depend on its neighbours
+    first = order[:GATEWAY_CHECKED]
+    trace = [(gw.specs[rid].prompt, gw.specs[rid].max_new_tokens, float(i)) for i, rid in enumerate(first)]
+    run.eng = None
+    plain = ServeRun(cfg, params, trace, plain=True, engine=ServeEngine(
+        cfg, params, dataclasses.replace(ecfg, plain_attention=True)), rids=first).run()
+    plain.eng = None
+    check_lengths(plain, len(first))
+    err = compare_runs(run, plain, None)
+    print(
+        f"gateway, bf16: max |prefill logits, kernels - plain| {max(err):.3e} over the "
+        f"plan's first {len(first)} requests (bound: twice phase 5's plain spread, "
+        f"{2 * bf16_spread:.3e})"
+    )
+    if max(err) > 2 * bf16_spread:
+        raise AssertionError("gateway bf16 kernel logits part from plain beyond twice its spread")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    at_once = [(p, n, 0.0) for p, n, _ in trace]
+    runs32 = []
+    for p in (False, True):
+        eng = ServeEngine(cfg32, params, dataclasses.replace(ecfg, plain_attention=p))
+        r = ServeRun(cfg32, params, at_once, plain=p, engine=eng, rids=first).run()
+        r.eng = None
+        check_lengths(r, len(first))
+        runs32.append(r)
+    err32 = compare_runs(*runs32, F32_TOL)
+    print(f"gateway, float32: max |prefill logits, kernels - plain| {max(err32):.3e} (bound {F32_TOL})")
+    return launches, replay, {"bf16": max(err), "float32": max(err32)}
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -933,6 +1180,66 @@ def attention_report(cfg, timing, work):
     return report
 
 
+def time_variants(dev, cfg, valid):
+    """The kernels' variants off the main path, at phase 3's shapes: the
+    global window kernel on (300, 1000) at w = 100 (mean), and the wide
+    flash (S = 300, causal) and decode (the serving mask) kernels at
+    D = 288 in bf16 with qwen3-0.6b's 16/8 heads. Per launch over 10
+    back-to-back calls in a graph, beside the plain version and the bound
+    (bytes in and out once; for attention the bf16 tensor-core rate)."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.window_agg import window_agg, window_agg_ref
+
+    s, c, w = WIDE_WINDOW
+    x = randn((s, c), s, dev)
+    wide = dataclasses.replace(cfg, head_dim=WIDE_HEAD_DIM)
+    hq, hkv, d = wide.n_heads, wide.n_kv_heads, WIDE_HEAD_DIM
+    q, k, v = attention_inputs(wide, 300, 11, dev)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    b, cache = valid.shape
+    qd, kd, vd = attention_inputs(wide, 1, 13, dev, b=b, c=cache)
+    mask = valid.to(dev)
+    n_valid = int(valid.sum())
+    cases = {
+        "window_agg global (300, 1000) w=100 mean": (
+            lambda: window_agg(x, window=w, agg="mean"),
+            lambda: window_agg_ref(x, window=w, agg="mean"),
+            bound(2 * 4 * s * c, s * c * w),
+        ),
+        f"flash_attention wide S=300 D={d} bf16": (
+            lambda: flash_attention(q, k, v, causal=True),
+            lambda: flash_attention_ref(qt, kt, vt, causal=True),
+            bound(2 * 300 * d * (2 * hq + 2 * hkv), 2 * hq * 300 * 300 * d, BF16_FLOP_PER_S),
+        ),
+        f"decode_attention wide (8, 2048) D={d} bf16": (
+            lambda: decode_attention(qd, kd, vd, mask),
+            lambda: decode_attention_ref(qd, kd, vd, mask),
+            bound(
+                2 * (2 * b * hq * d + 2 * n_valid * hkv * d) + b * cache,
+                4 * n_valid * hq * d,
+                BF16_FLOP_PER_S,
+            ),
+        ),
+    }
+    out = {}
+    for name, (kernel, plain, (bound_ms, bound_by)) in cases.items():
+        ms = graph_ms([kernel] * 10) / 10
+        plain_ms = graph_ms([plain] * 10) / 10
+        out[name] = {
+            "us": ms * 1e3,
+            "plain_us": plain_ms * 1e3,
+            "bound_us": bound_ms * 1e3,
+            "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms,
+        }
+        print(
+            f"{name}: {ms * 1e3:.3f} us per launch (plain {plain_ms * 1e3:.3f} us, bound "
+            f"{bound_ms * 1e3:.3f} us by {bound_by}, {bound_ms / ms:.1%} of it)"
+        )
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -970,8 +1277,7 @@ def main() -> int:
 
     phase("5. serving path")
     t0 = time.perf_counter()
-    serve_launches, serve_stats, serve_err = run_serving(dev, cfg, trace)
-    launches.update(serve_launches)
+    serve_launches, serve_stats, serve_err, params = run_serving(dev, cfg, trace)
     print(f"serving phase: {time.perf_counter() - t0:.3f} s")
 
     phase("6. timing")
@@ -998,6 +1304,17 @@ def main() -> int:
     )
     print(f"attention kernels: {json.dumps(attn)}")
     print(f"DS kernels: {json.dumps(ds)}")
+    variants = time_variants(dev, cfg, valid)
+    print(f"kernel variants off the main path: {json.dumps(variants)}")
+
+    phase("7. gateway path")
+    t0 = time.perf_counter()
+    gateway_launches, gateway_stats, gateway_err = run_gateway(
+        dev, cfg, params, serve_err["bf16_plain_spread"]
+    )
+    launches.update(gateway_launches)
+    del params
+    print(f"gateway phase: {time.perf_counter() - t0:.3f} s")
     meta = {
         "kmeans_assign": (
             "src/repro_torch/csrc/kmeans_assign.cu",
@@ -1042,6 +1359,9 @@ def main() -> int:
     print(f"pipeline wall per instance: {walls}")
     print(f"serving: {json.dumps(serve_stats)}")
     print(f"serving, max |prefill logits, kernels - plain|: {json.dumps(serve_err)}")
+    print(f"serving launches (phase 5): {json.dumps(serve_launches)}")
+    print(f"gateway: {json.dumps(gateway_stats)}")
+    print(f"gateway, max |prefill logits, kernels - plain|: {json.dumps(gateway_err)}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

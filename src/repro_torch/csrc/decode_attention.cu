@@ -47,6 +47,18 @@
 // layout (a uniform branch on a kernel argument). Query groups wider than
 // 8 heads are processed 8 heads per pass. The TPU kernel instead carried
 // one running state across a sequential grid axis.
+//
+// D > 256 (float32 and bf16): decode_wide_kernel, a simple CUDA-core
+// variant that writes the same partials for the same combine, for head
+// dims whose rows would not fit the split kernel's registers (the TPU
+// wrapper takes any D). One block of 4 warps per (b * Hq + h, split,
+// 128-column chunk of the output): each warp takes every fourth valid
+// slot of the split, computes q . k over all of D with its lanes on
+// consecutive columns and a shuffle sum, and keeps a running max,
+// denominator and 4 output columns a lane; the warps merge through shared
+// memory. Each chunk and query head reads K again, so it reads G * D / 128
+// times the bytes the split kernel reads. No head config of the repo
+// reaches it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -352,6 +364,88 @@ __global__ void __launch_bounds__(kCombineThreads)
   }
 }
 
+constexpr int kWideWarps = 4;
+constexpr int kWideCols = 128;            // output columns a block
+constexpr int kWidePer = kWideCols / 32;  // output columns a lane
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWideWarps)
+    decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const uint8_t* __restrict__ valid,
+                       float* __restrict__ part_acc, float* __restrict__ part_ml, int b_len,
+                       int c_len, int hq, int hkv, int d, int split, float softcap,
+                       float scale) {
+  __shared__ float sm_m[kWideWarps];
+  __shared__ float sm_l[kWideWarps];
+  __shared__ float sm_acc[kWideWarps][kWideCols];
+  const int row = blockIdx.x;  // b * hq + h
+  const int b = row / hq;
+  const int h = row % hq;
+  const int hk = h / (hq / hkv);
+  const int s_idx = blockIdx.y;
+  const int c0 = blockIdx.z * kWideCols;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t slot_step = static_cast<int64_t>(hkv) * d;
+  const T* qh = q + static_cast<int64_t>(row) * d;
+  const T* kb = k + (static_cast<int64_t>(b) * c_len * hkv + hk) * d;
+  const T* vb = v + (static_cast<int64_t>(b) * c_len * hkv + hk) * d;
+  const uint8_t* ok_b = valid + static_cast<int64_t>(b) * c_len;
+  const int c_end = min(c_len, (s_idx + 1) * split);
+
+  float m = kNeg, l = 0.0f, acc[kWidePer];
+#pragma unroll
+  for (int j = 0; j < kWidePer; ++j) acc[j] = 0.0f;
+  for (int c = s_idx * split + warp; c < c_end; c += kWideWarps) {
+    if (ok_b[c] == 0) continue;  // the whole warp
+    const T* kr = kb + c * slot_step;
+    float x = 0.0f;
+    for (int e = lane; e < d; e += 32) x = fmaf(to_f32(qh[e]) * scale, to_f32(kr[e]), x);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+    const float m_new = fmaxf(m, x);
+    const float alpha = __expf(m - m_new);
+    const float p = __expf(x - m_new);
+    l = l * alpha + p;
+    m = m_new;
+    const T* vr = vb + c * slot_step;
+#pragma unroll
+    for (int j = 0; j < kWidePer; ++j) {
+      const int col = c0 + lane + 32 * j;
+      acc[j] = acc[j] * alpha + (col < d ? p * to_f32(vr[col]) : 0.0f);
+    }
+  }
+  if (lane == 0) {
+    sm_m[warp] = m;
+    sm_l[warp] = l;
+  }
+#pragma unroll
+  for (int j = 0; j < kWidePer; ++j) sm_acc[warp][lane + 32 * j] = acc[j];
+  __syncthreads();
+  const int col = c0 + static_cast<int>(threadIdx.x);
+  if (threadIdx.x >= kWideCols || col >= d) return;
+  float mx = kNeg;
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) mx = fmaxf(mx, sm_m[w]);
+  float den = 0.0f, num = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) {
+    const float f = __expf(sm_m[w] - mx);
+    den = fmaf(sm_l[w], f, den);
+    num = fmaf(sm_acc[w][threadIdx.x], f, num);
+  }
+  const int64_t prow = static_cast<int64_t>(s_idx) * b_len * hq + row;
+  part_acc[prow * d + col] = num;
+  if (col == 0) {
+    part_ml[2 * prow] = mx;
+    part_ml[2 * prow + 1] = den;
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -419,6 +513,29 @@ int by_lanes(const Args& a) {
   return by_group<T, 32, 1, 4>(a);
 }
 
+template <typename T>
+int launch_wide(const Args& a) {
+  if (a.b <= 0 || a.hq <= 0) return static_cast<int>(cudaSuccess);
+  if (a.d <= 0 || a.hkv <= 0 || a.hq % a.hkv != 0 || a.n_split <= 0 || a.n_split > 65535 ||
+      a.split < 0 || a.n_split * a.split < a.c) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = static_cast<int>(a.b * a.hq);
+  const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(a.n_split),
+                  static_cast<unsigned>((a.d + kWideCols - 1) / kWideCols));
+  decode_wide_kernel<T><<<grid, 32 * kWideWarps, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.valid, a.part_acc, a.part_ml, static_cast<int>(a.b), static_cast<int>(a.c),
+      static_cast<int>(a.hq), static_cast<int>(a.hkv), static_cast<int>(a.d),
+      static_cast<int>(a.split), a.softcap, a.scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_combine_kernel<T><<<rows, kCombineThreads, 0, a.stream>>>(
+      a.part_acc, a.part_ml, static_cast<T*>(a.out), static_cast<int>(a.n_split), rows,
+      static_cast<int>(a.d));
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 template <typename T>
@@ -437,10 +554,10 @@ template <typename T>
 int entry(const void* q, const void* k, const void* v, const uint8_t* valid, void* out,
           float* part_acc, float* part_ml, int64_t b, int64_t c, int64_t hq, int64_t hkv,
           int64_t d, int64_t n_split, int64_t split, float softcap, float scale,
-          cudaStream_t stream) {
+          cudaStream_t stream, bool wide) {
   const Args a{q, k, v, valid, out, part_acc, part_ml, b, c, hq, hkv, d, n_split, split,
                true, softcap, scale, stream};
-  return dispatch<T>(a);
+  return wide ? launch_wide<T>(a) : dispatch<T>(a);
 }
 
 }  // namespace
@@ -458,7 +575,7 @@ extern "C" int decode_attention_f32(const float* q, const float* k, const float*
                                     int64_t split, float softcap, float scale,
                                     cudaStream_t stream) {
   return entry<float>(q, k, v, valid, out, part_acc, part_ml, b, c, hq, hkv, d, n_split,
-                      split, softcap, scale, stream);
+                      split, softcap, scale, stream, false);
 }
 
 extern "C" int decode_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -468,15 +585,48 @@ extern "C" int decode_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16
                                      int64_t d, int64_t n_split, int64_t split,
                                      float softcap, float scale, cudaStream_t stream) {
   return entry<__nv_bfloat16>(q, k, v, valid, out, part_acc, part_ml, b, c, hq, hkv, d,
-                              n_split, split, softcap, scale, stream);
+                              n_split, split, softcap, scale, stream, false);
+}
+
+// As decode_attention_f32 and decode_attention_bf16, at any d: the wide
+// split kernel and the same combine, which the wrapper takes for d > 256.
+extern "C" int decode_attention_wide_f32(const float* q, const float* k, const float* v,
+                                         const uint8_t* valid, float* out, float* part_acc,
+                                         float* part_ml, int64_t b, int64_t c, int64_t hq,
+                                         int64_t hkv, int64_t d, int64_t n_split,
+                                         int64_t split, float softcap, float scale,
+                                         cudaStream_t stream) {
+  return entry<float>(q, k, v, valid, out, part_acc, part_ml, b, c, hq, hkv, d, n_split,
+                      split, softcap, scale, stream, true);
+}
+
+extern "C" int decode_attention_wide_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                          const __nv_bfloat16* v, const uint8_t* valid,
+                                          __nv_bfloat16* out, float* part_acc,
+                                          float* part_ml, int64_t b, int64_t c, int64_t hq,
+                                          int64_t hkv, int64_t d, int64_t n_split,
+                                          int64_t split, float softcap, float scale,
+                                          cudaStream_t stream) {
+  return entry<__nv_bfloat16>(q, k, v, valid, out, part_acc, part_ml, b, c, hq, hkv, d,
+                              n_split, split, softcap, scale, stream, true);
 }
 
 // Registers, static shared memory, local (spill) bytes and the dynamic
 // shared memory of the split kernel that a bf16 (bf16 != 0) or float32
 // call with this d and g = hq / hkv launches; into out[0..3]. Returns the cudaError_t of the query.
+// For d > 256, the wide kernel's (its shared memory is static).
 extern "C" int decode_attention_attributes(int64_t bf16, int64_t d, int64_t g, int* out) {
   cudaFuncAttributes attr{};
   cudaError_t err = cudaErrorInvalidValue;
+  if (d > 256) {
+    err = bf16 ? cudaFuncGetAttributes(&attr, decode_wide_kernel<__nv_bfloat16>)
+               : cudaFuncGetAttributes(&attr, decode_wide_kernel<float>);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[2] = static_cast<int>(attr.localSizeBytes);
+    out[3] = 0;
+    return static_cast<int>(err);
+  }
   const int gt = g == 1 ? 1 : g == 2 ? 2 : g <= 4 ? 4 : 8;
 #define REPRO_ATTR(T, LPS, NV, U)                                                   \
   err = gt == 1   ? cudaFuncGetAttributes(&attr, decode_split_kernel<T, LPS, NV, 1, U>) \

@@ -63,7 +63,20 @@
 // through shared memory (transposed) into the P V product. q tiles are
 // issued longest-first.
 //
-// Nothing carries between blocks in either kernel, and padded rows and keys
+// wide entries (flash_attention_wide_kernel), float32 and bf16 at any D,
+// taken for D > 256, where the two kernels above would not fit their
+// registers and shared memory (the TPU wrapper pads D to a multiple of 128
+// and takes any D). A simple CUDA-core kernel: one warp per query row and
+// 4 rows a block, and a grid axis over 128-column chunks of the output. A
+// warp keeps its q row (scaled, float32) in shared memory, walks the keys
+// its masks reach one at a time, takes q . k over all of D with its lanes
+// on consecutive columns (coalesced loads) and a shuffle sum, and keeps the
+// online softmax and the 4 output columns a lane owns in registers. Each
+// chunk's blocks recompute the scores; K is read once per chunk and row, so
+// it is bounded by those loads (L1 and L2 catch the rows the 4 warps of a
+// block share), not by operations. No head config of the repo reaches it.
+//
+// Nothing carries between blocks in any kernel, and padded rows and keys
 // never leave a block: the kernels read (B, S, H, D) directly and mask the
 // ragged edge themselves.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
@@ -836,6 +849,110 @@ int dispatch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// D > 256, float32 and bf16: CUDA cores, one warp a query row
+// ---------------------------------------------------------------------------
+
+namespace wide {
+
+constexpr int kWarps = 4;                // query rows a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 128;               // output columns a block
+constexpr int kPer = kCols / 32;         // output columns a lane
+constexpr size_t kDefaultSmem = 48 * 1024;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+size_t smem_bytes(int64_t d) { return sizeof(float) * kWarps * static_cast<size_t>(d); }
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, T* __restrict__ out, int s_len,
+                                int hq, int hkv, int d, int causal, int window,
+                                float softcap, float scale) {
+  extern __shared__ float q_rows[];  // [kWarps][d]: q * scale
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int qpos = (gridDim.x - 1 - blockIdx.x) * kWarps + warp;  // longest rows first
+  if (qpos >= s_len) return;  // the whole warp; no block barrier follows
+  const int bh = blockIdx.y;
+  const int b = bh / hq;
+  const int h = bh % hq;
+  const int hk = h / (hq / hkv);
+  const int c0 = blockIdx.z * kCols;
+  const int64_t kv_step = static_cast<int64_t>(hkv) * d;
+  const T* qr = q + ((static_cast<int64_t>(b) * s_len + qpos) * hq + h) * d;
+  const T* kb = k + (static_cast<int64_t>(b) * s_len * hkv + hk) * d;
+  const T* vb = v + (static_cast<int64_t>(b) * s_len * hkv + hk) * d;
+  float* qs = q_rows + warp * d;
+  for (int c = lane; c < d; c += 32) qs[c] = to_f32(qr[c]) * scale;
+  __syncwarp();
+
+  const int lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  const int hi = causal ? qpos + 1 : s_len;
+  float m = kNeg, l = 0.0f, acc[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) acc[j] = 0.0f;
+  for (int key = lo; key < hi; ++key) {
+    const T* kr = kb + key * kv_step;
+    float x = 0.0f;
+    for (int c = lane; c < d; c += 32) x = fmaf(qs[c], to_f32(kr[c]), x);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+    const float m_new = fmaxf(m, x);
+    const float alpha = expf(m - m_new);
+    const float p = expf(x - m_new);
+    l = l * alpha + p;
+    m = m_new;
+    const T* vr = vb + key * kv_step;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int col = c0 + lane + 32 * j;
+      acc[j] = acc[j] * alpha + (col < d ? p * to_f32(vr[col]) : 0.0f);
+    }
+  }
+  const float denom = fmaxf(l, 1e-30f);
+  T* orow = out + ((static_cast<int64_t>(b) * s_len + qpos) * hq + h) * d;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int col = c0 + lane + 32 * j;
+    if (col < d) store(&orow[col], acc[j] / denom);
+  }
+}
+
+template <typename T>
+int launch(const T* q, const T* k, const T* v, T* out, int64_t b, int64_t s, int64_t hq,
+           int64_t hkv, int64_t d, int64_t causal, int64_t window, float softcap,
+           float scale, cudaStream_t stream) {
+  if (b <= 0 || s <= 0) return static_cast<int>(cudaSuccess);
+  if (d <= 0 || hkv <= 0 || hq % hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_attention_wide_kernel<T>;
+  const size_t smem = smem_bytes(d);
+  // opt in above 48 KB once per instantiation and size, so that a launch
+  // inside CUDA-graph capture makes no attribute call
+  static size_t opted_in = kDefaultSmem;
+  if (smem > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = smem;
+  }
+  const dim3 grid(static_cast<unsigned>((s + kWarps - 1) / kWarps),
+                  static_cast<unsigned>(b * hq), static_cast<unsigned>((d + kCols - 1) / kCols));
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, static_cast<int>(s),
+                                           static_cast<int>(hq), static_cast<int>(hkv),
+                                           static_cast<int>(d), static_cast<int>(causal),
+                                           static_cast<int>(window), softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wide
+
 }  // namespace
 
 // q (b, s, hq, d), k and v (b, s, hkv, d), out (b, s, hq, d), all
@@ -860,14 +977,37 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16*
   return tc::dispatch(q, k, v, out, b, s, hq, hkv, d, causal, window, softcap, scale, stream);
 }
 
+// As flash_attention_f32 and flash_attention_bf16, at any d: the wide
+// kernel on the CUDA cores, which the wrapper takes for d > 256.
+extern "C" int flash_attention_wide_f32(const float* q, const float* k, const float* v,
+                                        float* out, int64_t b, int64_t s, int64_t hq,
+                                        int64_t hkv, int64_t d, int64_t causal,
+                                        int64_t window, float softcap, float scale,
+                                        cudaStream_t stream) {
+  return wide::launch(q, k, v, out, b, s, hq, hkv, d, causal, window, softcap, scale, stream);
+}
+
+extern "C" int flash_attention_wide_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                         const __nv_bfloat16* v, __nv_bfloat16* out,
+                                         int64_t b, int64_t s, int64_t hq, int64_t hkv,
+                                         int64_t d, int64_t causal, int64_t window,
+                                         float softcap, float scale, cudaStream_t stream) {
+  return wide::launch(q, k, v, out, b, s, hq, hkv, d, causal, window, softcap, scale, stream);
+}
+
 // Registers, static shared memory, local (spill) bytes and dynamic shared
 // memory of the kernel that a bf16 (bf16 != 0) or float32 call with this d
-// launches; into out[0..3]. Returns the cudaError_t of the query.
+// launches (the wide kernel for d > 256); into out[0..3]. Returns the
+// cudaError_t of the query.
 extern "C" int flash_attention_attributes(int64_t bf16, int64_t d, int* out) {
   cudaFuncAttributes attr{};
   cudaError_t err;
   size_t dynamic;
-  if (bf16) {
+  if (d > 256) {
+    err = bf16 ? cudaFuncGetAttributes(&attr, wide::flash_attention_wide_kernel<__nv_bfloat16>)
+               : cudaFuncGetAttributes(&attr, wide::flash_attention_wide_kernel<float>);
+    dynamic = wide::smem_bytes(d);
+  } else if (bf16) {
     const int64_t nc = (d + tc::kCols - 1) / tc::kCols;
     err = nc == 1   ? cudaFuncGetAttributes(&attr, tc::flash_attention_tc_kernel<1>)
           : nc == 2 ? cudaFuncGetAttributes(&attr, tc::flash_attention_tc_kernel<2>)

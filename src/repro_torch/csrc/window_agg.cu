@@ -8,7 +8,7 @@
 // x once, write out once): 16 MB at the pipeline's (500,000, 4), under 5 us
 // at the memory's rate, against O(1) or O(log w) operations per output here.
 //
-// Two kernels; the wrapper picks one by shape (window_plan in ops.py):
+// Three kernels; the wrapper picks one by shape (window_plan in ops.py):
 //
 // * scan (C = 4, w <= 32, x 16-byte aligned; every call of the pipeline),
 //   templated on agg. A warp walks 8 consecutive chunks of 32 rows; lane l
@@ -33,10 +33,17 @@
 //   consecutive rows, copies them and the w - 1 rows before them (the halo,
 //   clamped at row 0) into shared memory in one coalesced pass, and every
 //   thread reduces its outputs' <= w values from shared memory with direct
-//   float32 sums. The wrapper picks tile_rows and refuses a window whose
-//   halo does not fit in the 227 KB of shared memory a block may use.
+//   float32 sums. The wrapper picks tile_rows; a window whose halo does not
+//   fit in the 227 KB of shared memory a block may use goes to the next one.
+// * global (a halo over shared memory: 4 w C bytes above 227 KB, e.g. C =
+//   1000 at w = 100): one thread an output element, threads of a block on
+//   consecutive elements of a row, so each of the w row reads of a warp is
+//   coalesced; the window is read from device memory (L1 and L2 catch the
+//   rows that neighbouring outputs share), summed in the general kernel's
+//   order. It reads w values an output instead of ~1, so it is bounded by
+//   those loads, not by the 8 bytes an element the call must move.
 //
-// Both kernels are free of atomics: each case gives the same bits on every
+// The kernels are free of atomics: each case gives the same bits on every
 // run.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -204,6 +211,32 @@ __global__ void window_agg_kernel(const float* __restrict__ x,
   }
 }
 
+// -- global kernel ---------------------------------------------------------------
+
+constexpr int kGlobalThreads = 256;
+
+__global__ void __launch_bounds__(kGlobalThreads)
+    window_agg_global_kernel(const float* __restrict__ x, float* __restrict__ out,
+                             int64_t s, int64_t c, int64_t w, int64_t agg) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kGlobalThreads + threadIdx.x;
+  if (e >= s * c) return;
+  const int64_t row = e / c;
+  const int64_t col = e - row * c;
+  const int64_t lo = imax(row - (w - 1), 0);
+  const int64_t cnt = row - lo + 1;
+  const float* v = x + lo * c + col;
+  float acc;
+  if (agg == kMax) {
+    acc = -INFINITY;
+    for (int64_t j = 0; j < cnt; ++j) acc = fmaxf(acc, __ldg(v + j * c));
+  } else {
+    acc = 0.0f;
+    for (int64_t j = 0; j < cnt; ++j) acc += __ldg(v + j * c);
+    if (agg == kMean) acc /= static_cast<float>(cnt);
+  }
+  out[e] = acc;
+}
+
 }  // namespace
 
 // Scan kernel: x, out (s, 4) float32 row-major, 16-byte aligned;
@@ -244,11 +277,29 @@ extern "C" int window_agg_f32(const float* x, float* out, int64_t s,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Global kernel: x, out (s, c) float32 row-major; 1 <= w; agg 0 sum, 1
+// mean, 2 max; `blocks` blocks of 256 threads, one output element a thread
+// (blocks * 256 >= s * c). Returns the cudaError_t of the launch.
+extern "C" int window_agg_global_f32(const float* x, float* out, int64_t s, int64_t c,
+                                     int64_t w, int64_t agg, int64_t blocks,
+                                     cudaStream_t stream) {
+  if (s <= 0 || c <= 0) return static_cast<int>(cudaSuccess);
+  if (w < 1 || agg < kSum || agg > kMax || blocks * kGlobalThreads < s * c) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  window_agg_global_kernel<<<static_cast<unsigned>(blocks), kGlobalThreads, 0, stream>>>(
+      x, out, s, c, w, agg);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Registers a thread, static shared memory a block and local (spill) bytes
-// a thread of the scan kernel for agg, or of the general kernel when
-// scan == 0; into out[0..2]. Returns the cudaError_t of the query.
-extern "C" int window_agg_attributes(int64_t scan, int64_t agg, int* out) {
-  const void* fn = scan ? scan_instance(agg) : reinterpret_cast<const void*>(window_agg_kernel);
+// a thread of the general kernel (variant 0), the scan kernel for agg
+// (variant 1) or the global kernel (variant 2); into out[0..2]. Returns the
+// cudaError_t of the query.
+extern "C" int window_agg_attributes(int64_t variant, int64_t agg, int* out) {
+  const void* fn = variant == 1   ? scan_instance(agg)
+                   : variant == 2 ? reinterpret_cast<const void*>(window_agg_global_kernel)
+                                  : reinterpret_cast<const void*>(window_agg_kernel);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr{};
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);

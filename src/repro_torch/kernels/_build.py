@@ -46,16 +46,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "window_agg": {
         "window_agg_scan_f32": [_P, _P, _I, _I, _I, _I, _P],
         "window_agg_f32": [_P, _P, _I, _I, _I, _I, _I, _P],
+        "window_agg_global_f32": [_P, _P, _I, _I, _I, _I, _I, _P],
         "window_agg_attributes": [_I, _I, _P],
     },
     "flash_attention": {
         "flash_attention_f32": _FLASH,
         "flash_attention_bf16": _FLASH,
+        "flash_attention_wide_f32": _FLASH,
+        "flash_attention_wide_bf16": _FLASH,
         "flash_attention_attributes": [_I, _I, _P],
     },
     "decode_attention": {
         "decode_attention_f32": _DECODE,
         "decode_attention_bf16": _DECODE,
+        "decode_attention_wide_f32": _DECODE,
+        "decode_attention_wide_bf16": _DECODE,
         "decode_attention_attributes": [_I, _I, _I, _P],
     },
 }

@@ -4,13 +4,16 @@ Same contract as the JAX wrapper: q (B, Hq, D), the cache's k/v
 (B, C, Hkv, D) and a per-slot ``valid`` (B, C) mask. The kernel masks on
 ``valid`` alone, so a caller with causal or window masks folds them into
 it (``repro_torch.models.layers.attention_block`` does). Nothing is
-padded: the kernel takes any C and any D up to 256. The cache is cut into
-the splits of :func:`split_plan`; one kernel attends over each split of
-each (b, kv head) and a second merges the splits' partial softmaxes from
-float32 scratch allocated here. A CUDA tensor launches the kernels on the
-current stream; a CPU tensor takes the plain version in
-:mod:`repro_torch.kernels.decode_attention.ref`. Nothing falls back from
-one to the other.
+padded: the kernels take any C and any D. The cache is cut into the
+splits of :func:`split_plan`; one kernel attends over each split of each
+(b, kv head) and a second merges the splits' partial softmaxes from
+float32 scratch allocated here. Beyond D = 256 the splits go to the wide
+kernel instead (:func:`decode_variant`), which writes the same partials
+for the same merge. A non-contiguous input is copied to a contiguous one
+first, as the JAX wrapper's padding copies. A CUDA tensor launches the
+kernels on the current stream; a CPU tensor of any strides and head dim
+takes the plain version in :mod:`repro_torch.kernels.decode_attention.ref`.
+Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 #: the kernel's entry point per input type
 ENTRY = {torch.float32: "decode_attention_f32", torch.bfloat16: "decode_attention_bf16"}
+#: the wide kernel's entry point per input type
+WIDE_ENTRY = {torch.float32: "decode_attention_wide_f32", torch.bfloat16: "decode_attention_wide_bf16"}
+#: the largest D of the split kernel; the wide one beyond
 MAX_HEAD_DIM = 256
 #: the fewest slots a split gets, so that a block has a few loads per warp
 MIN_SPLIT = 64
@@ -50,6 +56,12 @@ def split_plan(b: int, hkv: int, c: int, n_sm: int) -> Tuple[int, int]:
     return -(-c // split), split
 
 
+def decode_variant(d: int) -> str:
+    """The split kernel a call at head dim ``d`` launches: ``"wide"`` above
+    :data:`MAX_HEAD_DIM`, else ``"split"``."""
+    return "wide" if d > MAX_HEAD_DIM else "split"
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -66,8 +78,8 @@ def _check(q, k, v, valid) -> None:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     if k.shape[2] < 1 or hq % k.shape[2]:
         raise ValueError("Hq must be a multiple of Hkv")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
+    if d < 1:
+        raise ValueError(f"head_dim {d} < 1")
     if q.dtype not in ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"decode_attention wants float32 or bfloat16 alike, got "
@@ -79,8 +91,6 @@ def _check(q, k, v, valid) -> None:
         raise ValueError(
             f"q on {q.device}, k on {k.device}, v on {v.device}, valid on {valid.device}"
         )
-    if not all(t.is_contiguous() for t in (q, k, v, valid)):
-        raise ValueError("decode_attention wants contiguous q, k, v and valid")
 
 
 def decode_attention(
@@ -106,6 +116,7 @@ def decode_attention(
         return decode_attention_ref(q, k, v, valid, softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
+    q, k, v, valid = (t.contiguous() for t in (q, k, v, valid))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -113,7 +124,8 @@ def decode_attention(
     n_split, split = split_plan(b, hkv, c, _sm_count(q.device.index or 0))
     part_acc = torch.empty((n_split, b, hq, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((n_split, b, hq, 2), dtype=torch.float32, device=q.device)
-    fn = getattr(_build.library("decode_attention"), ENTRY[q.dtype])
+    entry = WIDE_ENTRY if decode_variant(d) == "wide" else ENTRY
+    fn = getattr(_build.library("decode_attention"), entry[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(

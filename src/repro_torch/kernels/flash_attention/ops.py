@@ -2,14 +2,18 @@
 
 Takes the model's layout, q (B, S, Hq, D) and k/v (B, S, Hkv, D), as the
 JAX wrapper does. Unlike it, kv heads are not repeated: the kernels read
-kv head ``h // (Hq // Hkv)`` themselves and mask the ragged S. float32
-runs on the CUDA cores and takes any D up to 256. bf16 runs on the tensor
-cores with TMA loads, whose rows must be 16-byte aligned: a D that is not
-a multiple of 8 is zero-padded to one here (:func:`pad_head_dim`; the
-JAX wrapper pads to 128 lanes) and the output sliced back. A CUDA tensor
-launches a kernel on the current stream; a CPU tensor takes the plain
-version in :mod:`repro_torch.kernels.flash_attention.ref`. Nothing falls
-back from one to the other.
+kv head ``h // (Hq // Hkv)`` themselves and mask the ragged S. Up to
+D = 256, float32 runs on the CUDA cores, and bf16 runs on the tensor cores
+with TMA loads, whose rows must be 16-byte aligned: a D that is not a
+multiple of 8 is zero-padded to one here (:func:`pad_head_dim`; the JAX
+wrapper pads to 128 lanes) and the output sliced back, and a q, k or v
+that is not 16-byte aligned is copied. Beyond D = 256 both types take the
+wide kernel on the CUDA cores (:func:`flash_variant`). A non-contiguous
+input is copied to a contiguous one first, as the JAX wrapper's padding
+copies. A CUDA tensor launches a kernel on the current stream; a CPU
+tensor of any strides and head dim takes the plain version in
+:mod:`repro_torch.kernels.flash_attention.ref`. Nothing falls back from
+one to the other.
 """
 
 from __future__ import annotations
@@ -26,14 +30,23 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: the kernel's entry point per input type
 ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+#: the wide kernel's entry point per input type
+WIDE_ENTRY = {torch.float32: "flash_attention_wide_f32", torch.bfloat16: "flash_attention_wide_bf16"}
+#: the largest D of the float32 and tensor-core kernels; the wide one beyond
 MAX_HEAD_DIM = 256
 #: the bf16 kernel's D granularity: TMA wants 16-byte row strides
 BF16_HEAD_DIM_MULTIPLE = 8
 
 
+def flash_variant(d: int) -> str:
+    """The kernel a call at head dim ``d`` launches: ``"wide"`` above
+    :data:`MAX_HEAD_DIM`, else the one for its type (``"tile"``)."""
+    return "wide" if d > MAX_HEAD_DIM else "tile"
+
+
 def padded_head_dim(d: int, dtype: torch.dtype) -> int:
     """The D the kernel for ``dtype`` is given for a head dim of ``d``."""
-    if dtype != torch.bfloat16:
+    if dtype != torch.bfloat16 or flash_variant(d) == "wide":
         return d
     return -(-d // BF16_HEAD_DIM_MULTIPLE) * BF16_HEAD_DIM_MULTIPLE
 
@@ -55,8 +68,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     if k.shape[2] < 1 or hq % k.shape[2]:
         raise ValueError("Hq must be a multiple of Hkv")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
+    if d < 1:
+        raise ValueError(f"head_dim {d} < 1")
     if q.dtype not in ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention wants float32 or bfloat16 alike, got "
@@ -64,8 +77,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention wants contiguous q, k and v")
 
 
 def flash_attention(
@@ -100,13 +111,14 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if q.numel() == 0:
-        return torch.empty_like(q)
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     d_pad = padded_head_dim(d, q.dtype)
-    q, k, v = (pad_head_dim(t, d_pad) for t in (q, k, v))
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention wants 16-byte aligned bf16 q, k and v (TMA)")
+    q, k, v = (pad_head_dim(t, d_pad).contiguous() for t in (q, k, v))
+    wide = flash_variant(d) == "wide"
+    if q.dtype == torch.bfloat16 and not wide:  # TMA reads 16-byte aligned rows
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
-    fn = getattr(_build.library("flash_attention"), ENTRY[q.dtype])
+    fn = getattr(_build.library("flash_attention"), (WIDE_ENTRY if wide else ENTRY)[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(

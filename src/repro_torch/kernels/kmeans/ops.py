@@ -1,9 +1,11 @@
 """Wrapper of the k-means assignment kernels (``csrc/kmeans_assign.cu``).
 
 A CUDA tensor launches one of the two kernels on the current stream, the one
-:func:`kmeans_plan` picks by shape and alignment; a CPU tensor takes the
-plain version in :mod:`repro_torch.kernels.kmeans.ref`. Nothing falls back
-from one to the other.
+:func:`kmeans_plan` picks by shape and alignment; a non-contiguous x or
+cent is copied to a contiguous one first (the JAX wrapper pads, so copies,
+every input). A CPU tensor of any strides takes the plain version in
+:mod:`repro_torch.kernels.kmeans.ref`. Nothing falls back from one to the
+other.
 """
 
 from __future__ import annotations
@@ -79,8 +81,6 @@ def _check(x: torch.Tensor, cent: torch.Tensor) -> None:
         raise TypeError(f"kmeans_assign wants float32, got {x.dtype}, {cent.dtype}")
     if x.device != cent.device:
         raise ValueError(f"x on {x.device} but cent on {cent.device}")
-    if not (x.is_contiguous() and cent.is_contiguous()):
-        raise ValueError("kmeans_assign wants contiguous x and cent")
 
 
 def kmeans_assign(
@@ -94,6 +94,7 @@ def kmeans_assign(
         return kmeans_assign_ref(x, cent)
     if x.device.type != "cuda":
         raise ValueError(f"kmeans_assign runs on cuda or cpu, not {x.device}")
+    x, cent = x.contiguous(), cent.contiguous()
     n, d = x.shape
     k = cent.shape[0]
     assign = torch.empty(n, dtype=torch.int32, device=x.device)

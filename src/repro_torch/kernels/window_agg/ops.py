@@ -1,9 +1,11 @@
 """Wrapper of the sliding-window aggregation kernels (``csrc/window_agg.cu``).
 
-A CUDA tensor launches one of the two kernels on the current stream, the one
-:func:`window_plan` picks by shape and alignment; a CPU tensor takes the
-plain version in :mod:`repro_torch.kernels.window_agg.ref`. Nothing falls
-back from one to the other.
+A CUDA tensor launches one of the three kernels on the current stream, the
+one :func:`window_plan` picks by shape and alignment; a non-contiguous x is
+copied to a contiguous one first (the JAX wrapper pads, so copies, its
+input). A CPU tensor of any strides and window takes the plain version in
+:mod:`repro_torch.kernels.window_agg.ref`. Nothing falls back from one to
+the other.
 """
 
 from __future__ import annotations
@@ -28,19 +30,28 @@ TILE_ELEMS = 2048
 SCAN_COLS = 4
 SCAN_MAX_WINDOW = 32
 SCAN_BLOCK_ROWS = 4 * 8 * 32
+#: threads a block of the global kernel (one output element a thread)
+GLOBAL_THREADS = 256
 
 
 @dataclass(frozen=True)
 class WindowPlan:
     """Which kernel a call launches and how: ``"scan"`` (C = 4, w <= 32,
-    in registers) or ``"general"`` (``tile_rows`` rows and their halo a
-    block in shared memory). ``w`` is the window clamped to [1, S];
-    ``blocks`` is the grid."""
+    in registers), ``"general"`` (``tile_rows`` rows and their halo a
+    block in shared memory) or ``"global"`` (a window too long for shared
+    memory, read from device memory). ``w`` is the window clamped to
+    [1, S]; ``blocks`` is the grid."""
 
     variant: str
     w: int
     blocks: int
     tile_rows: int = 0
+
+
+def tile_room(c: int, w: int) -> int:
+    """Rows of ``c`` floats a block's shared memory holds beside a halo of
+    ``w - 1`` rows; below 1 when not even one row and its halo fit."""
+    return SMEM_BYTES // (4 * c) - (w - 1)
 
 
 def tile_rows(s: int, c: int, w: int) -> int:
@@ -50,7 +61,7 @@ def tile_rows(s: int, c: int, w: int) -> int:
 
     Raises when even a one-row tile's halo does not fit: the counterpart of
     the TPU kernel's ``window <= block_s`` precondition."""
-    fit = SMEM_BYTES // (4 * c) - (w - 1)
+    fit = tile_room(c, w)
     if fit < 1:
         raise ValueError(
             f"window {w} over {c} columns needs {4 * w * c} bytes of shared "
@@ -62,12 +73,15 @@ def tile_rows(s: int, c: int, w: int) -> int:
 def window_plan(s: int, c: int, window: int, agg: str, x_ptr: int) -> WindowPlan:
     """The kernel for x (``s``, ``c``) at address ``x_ptr``: the scan one
     for C = 4, a window of at most 32 rows and a 16-byte aligned x; the
-    general one beyond, which raises when its halo does not fit."""
+    general one beyond, as long as its halo fits in shared memory; the
+    global one past that."""
     if agg not in AGGS:
         raise ValueError(f"unknown agg {agg!r}")
     w = max(1, min(window, s))
     if c == SCAN_COLS and w <= SCAN_MAX_WINDOW and x_ptr % 16 == 0:
         return WindowPlan("scan", w, blocks=-(-s // SCAN_BLOCK_ROWS))
+    if tile_room(max(c, 1), w) < 1:
+        return WindowPlan("global", w, blocks=-(-s * c // GLOBAL_THREADS))
     rows = tile_rows(s, max(c, 1), w)
     return WindowPlan("general", w, blocks=-(-s // rows), tile_rows=rows)
 
@@ -80,14 +94,15 @@ def window_agg(x: torch.Tensor, *, window: int, agg: str = "mean") -> torch.Tens
         raise ValueError(f"window_agg wants x (S, C), got {tuple(x.shape)}")
     if x.dtype != torch.float32:
         raise TypeError(f"window_agg wants float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("window_agg wants a contiguous x")
-    s, c = x.shape
-    plan = window_plan(s, c, window, agg, x.data_ptr())
+    if agg not in AGGS:
+        raise ValueError(f"unknown agg {agg!r}")
     if x.device.type == "cpu":
-        return window_agg_ref(x, window=plan.w, agg=agg)
+        return window_agg_ref(x, window=window, agg=agg)
     if x.device.type != "cuda":
         raise ValueError(f"window_agg runs on cuda or cpu, not {x.device}")
+    x = x.contiguous()
+    s, c = x.shape
+    plan = window_plan(s, c, window, agg, x.data_ptr())
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -97,6 +112,10 @@ def window_agg(x: torch.Tensor, *, window: int, agg: str = "mean") -> torch.Tens
         if plan.variant == "scan":
             err = lib.window_agg_scan_f32(
                 x.data_ptr(), out.data_ptr(), s, plan.w, AGGS[agg], plan.blocks, stream
+            )
+        elif plan.variant == "global":
+            err = lib.window_agg_global_f32(
+                x.data_ptr(), out.data_ptr(), s, c, plan.w, AGGS[agg], plan.blocks, stream
             )
         else:
             err = lib.window_agg_f32(
@@ -116,8 +135,7 @@ def kernel_attributes(plan: WindowPlan, agg: str) -> Dict[str, int]:
     (``cudaFuncGetAttributes``; the general kernel's shared memory is
     dynamic, ``(tile_rows + w - 1) * C`` floats); needs the card."""
     out = (ctypes.c_int * 3)()
-    err = _build.library("window_agg").window_agg_attributes(
-        int(plan.variant == "scan"), AGGS[agg], out
-    )
+    variant = {"general": 0, "scan": 1, "global": 2}[plan.variant]
+    err = _build.library("window_agg").window_agg_attributes(variant, AGGS[agg], out)
     _build.check(err, "window_agg_attributes")
     return dict(zip(("registers", "static_smem", "local_bytes"), out))

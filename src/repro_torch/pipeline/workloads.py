@@ -10,8 +10,8 @@ lays it out (ETL prefix → parallel analytics branches → join/export), with
   * ``in_bytes`` — raw sensor volume pulled by the source;
   * ``out_bytes`` — inter-task volumes, decreasing along the ETL prefix.
 
-The other builders of the reference module (neubot queries, LM pipelines)
-are not ported yet.
+Below them, copies of the reference module's other builders (a neubot
+query, an LM training job, one LM inference request), unchanged.
 """
 
 from __future__ import annotations
@@ -141,4 +141,71 @@ def ds_workload_executable(raw_mb: float = 16.0) -> PipelineDAG:
         }
         for name, fn in fns.items():  # det: ok binds each task once; order irrelevant
             g.task(name).backends[side] = fn
+    return g
+
+
+def neubot_query_pipeline(query: str = "max_download_3min",
+                          raw_mb: float = 4.0) -> PipelineDAG:
+    """A neubot-style streaming query (paper §3.4) as a mini-DAG.
+
+    EVERY <rate> compute <agg> of <metric> over <window>
+    FROM <store> and streaming <queue>
+    """
+    g = PipelineDAG(f"neubot_{query}")
+    g.add_task(Task("fetch_stream", "ingest", work=1.0, out_bytes=0.5 * MB,
+                    in_bytes=raw_mb * MB))
+    g.add_task(Task("historic_fetch", "ingest", work=2.0, out_bytes=2 * MB))
+    g.add_task(Task("window", "window_agg", work=4.0, out_bytes=0.5 * MB))
+    g.add_task(Task("aggregate", "summarize", work=4.0, out_bytes=0.1 * MB))
+    g.add_task(Task("sink", "export", work=0.5, out_bytes=0.0))
+    g.add_edge("fetch_stream", "window")
+    g.add_edge("historic_fetch", "window")
+    g.add_edge("window", "aggregate")
+    g.add_edge("aggregate", "sink")
+    return g
+
+
+def lm_training_pipeline(arch: str, steps_work: float = 1000.0,
+                         tokens_mb: float = 64.0) -> PipelineDAG:
+    """An LM training job as a JITA pipeline: host-side data pipeline tasks
+    ("edge") feeding device train steps ("VDC") — how the assigned
+    architectures enter the JITA-4DS scheduling world."""
+    g = PipelineDAG(f"lm_{arch}")
+    g.add_task(Task("fetch_corpus", "ingest", work=2.0,
+                    out_bytes=tokens_mb * MB, in_bytes=tokens_mb * MB))
+    g.add_task(Task("tokenize", "sql_transform", work=8.0,
+                    out_bytes=tokens_mb / 4 * MB))
+    g.add_task(Task("pack_batches", "select_columns", work=4.0,
+                    out_bytes=tokens_mb / 4 * MB))
+    g.add_task(Task("train", "lm_train_step", work=steps_work,
+                    out_bytes=1 * MB, params={"arch": arch}))
+    g.add_task(Task("eval", "lm_prefill", work=steps_work / 10,
+                    out_bytes=0.1 * MB))
+    g.add_task(Task("checkpoint", "export", work=1.0, out_bytes=0.0))
+    g.chain("fetch_corpus", "tokenize", "pack_batches", "train", "eval",
+            "checkpoint")
+    return g
+
+
+def inference_request_pipeline(rid: int, prompt_tokens: int,
+                               decode_tokens: int, *,
+                               prefill_work_per_tok: float = 1.0,
+                               decode_work_per_tok: float = 5.0,
+                               kv_bytes_per_tok: float = 0.0) -> PipelineDAG:
+    """One LM inference request as a JITA pipeline: a prefill task feeding
+    a decode task, names suffixed ``#<rid>`` so the request is a pipeline
+    *instance* (instance id ``str(rid)``) that carries its own
+    :class:`~repro.core.vos.ValueCurve` through the online driver — the
+    request→DAG mapping of the serving gateway
+    (:mod:`repro.serve.gateway`). Work is per-token cost × token count;
+    the gateway's cost-model bridge picks the per-token costs so engine
+    exec time equals the serve engine's abstract per-token clock."""
+    g = PipelineDAG(f"req{rid}")
+    g.add_task(Task(f"prefill#{rid}", "lm_prefill",
+                    work=prompt_tokens * prefill_work_per_tok,
+                    out_bytes=prompt_tokens * kv_bytes_per_tok))
+    g.add_task(Task(f"decode#{rid}", "lm_decode",
+                    work=decode_tokens * decode_work_per_tok,
+                    out_bytes=0.0))
+    g.add_edge(f"prefill#{rid}", f"decode#{rid}")
     return g

@@ -190,11 +190,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="multiple of Hkv"):
         flash_attention(q, k, k)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(*(torch.zeros((1, 8, 2, 300)),) * 3)
+        flash_attention(*(torch.zeros((1, 8, 2, 0)),) * 3)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(*(torch.zeros((1, 8, 2, 16), dtype=torch.float64),) * 3)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_attention(*(torch.zeros((1, 2, 8, 16)).transpose(1, 2),) * 3)
     qd = torch.zeros((2, 4, 16))
     kd = torch.zeros((2, 10, 2, 16))
     with pytest.raises(ValueError, match="valid must be bool"):

@@ -19,6 +19,7 @@ from repro_torch.kernels.kmeans.ops import (
 )
 from repro_torch.kernels.window_agg import window_agg, window_agg_ref
 from repro_torch.kernels.window_agg.ops import (
+    GLOBAL_THREADS,
     SCAN_BLOCK_ROWS,
     SMEM_BYTES,
     tile_rows,
@@ -111,11 +112,14 @@ def test_window_plan_clamps_the_window_to_the_rows(s, window):
 
 
 def test_window_plan_raises_on_a_halo_that_does_not_fit():
+    """A halo that does not fit in shared memory no longer raises: it takes
+    the global kernel, one thread an output; an unknown agg still raises."""
     c = 1000
     big_w = SMEM_BYTES // (4 * c)  # a one-row tile and its halo just fit
     assert window_plan(10_000, c, big_w, "sum", ALIGNED).tile_rows == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        window_plan(10_000, c, big_w + 1, "sum", ALIGNED)
+    plan = window_plan(10_000, c, big_w + 1, "sum", ALIGNED)
+    assert plan.variant == "global" and plan.w == big_w + 1
+    assert plan.blocks == -(-10_000 * c // GLOBAL_THREADS)
     with pytest.raises(ValueError, match="unknown agg"):
         window_plan(10_000, 4, 8, "median", ALIGNED)
 

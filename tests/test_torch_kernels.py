@@ -8,14 +8,20 @@ import torch
 
 import jax.numpy as jnp
 
+from repro.kernels.decode_attention import decode_attention as jax_decode_attention
+from repro.kernels.flash_attention import flash_attention as jax_flash_attention
 from repro.kernels.kmeans import kmeans_assign as jax_kmeans_assign
 from repro.kernels.kmeans import kmeans_assign_ref as jax_kmeans_assign_ref
 from repro.kernels.window_agg import window_agg as jax_window_agg
 from repro.kernels.window_agg import window_agg_ref as jax_window_agg_ref
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention.ops import decode_variant
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_variant, padded_head_dim
 from repro_torch.kernels.kmeans import kmeans_assign
 from repro_torch.kernels.kmeans.ops import STAGE_BYTES, centroid_chunk
 from repro_torch.kernels.window_agg import window_agg, window_agg_ref
-from repro_torch.kernels.window_agg.ops import SMEM_BYTES, TILE_ELEMS, tile_rows
+from repro_torch.kernels.window_agg.ops import SMEM_BYTES, TILE_ELEMS, tile_rows, window_plan
 
 KMEANS_CASES = [(100, 8, 4), (512, 16, 7), (1000, 3, 13), (64, 128, 32), (8, 2, 2)]
 WINDOW_CASES = [
@@ -78,8 +84,11 @@ def test_tile_rows_and_window_limit():
     assert tile_rows(10_000, c, big_w) == 1
     with pytest.raises(ValueError, match="shared memory"):
         tile_rows(10_000, c, big_w + 1)
-    with pytest.raises(ValueError, match="shared memory"):
-        window_agg(torch.zeros((10_000, c)), window=big_w + 1)
+    # past the general kernel's limit the wrapper still answers (the card
+    # takes the global kernel; the CPU the plain version)
+    x = torch.arange(10_000 * c, dtype=torch.float32).reshape(10_000, c) % 7
+    out = window_agg(x, window=big_w + 1, agg="max")
+    assert torch.equal(out, window_agg_ref(x, window=big_w + 1, agg="max"))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -88,8 +97,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         kmeans_assign(x.double(), x.double())
     with pytest.raises(ValueError):
         kmeans_assign(x, torch.zeros((3, 4)))
-    with pytest.raises(ValueError):
-        kmeans_assign(x.T, torch.zeros((3, 8)))  # not contiguous
     with pytest.raises(TypeError):
         window_agg(x.double(), window=2)
     with pytest.raises(ValueError):
@@ -111,3 +118,105 @@ def test_window_agg_plain_version_sums_in_float64():
     out = window_agg_ref(torch.from_numpy(x), window=16, agg="mean").numpy()
     direct = np.lib.stride_tricks.sliding_window_view(x[:, 0].astype(np.float64), 16)
     np.testing.assert_allclose(out[15:, 0], direct.mean(1), rtol=1e-6, atol=1e-6)
+
+
+# -- inputs the JAX wrappers take: any strides, any window, any head dim ------
+
+
+def _f1_x():
+    return np.random.default_rng(11).normal(0, 1, (1000, 8)).astype(np.float32)
+
+
+def test_kmeans_assign_takes_a_column_slice_as_jax_does():
+    x = _f1_x()
+    c = np.random.default_rng(12).normal(0, 1, (5, 2)).astype(np.float32)
+    view = torch.from_numpy(x)[:, :2]
+    assert not view.is_contiguous()
+    a, d2 = kmeans_assign(view, torch.from_numpy(c))
+    ja, jd = jax_kmeans_assign(jnp.asarray(x[:, :2]), jnp.asarray(c))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jd), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("agg", ["sum", "mean", "max"])
+def test_window_agg_takes_a_column_slice_as_jax_does(agg):
+    x = _f1_x()
+    view = torch.from_numpy(x)[:, :4]
+    assert not view.is_contiguous()
+    out = window_agg(view, window=4, agg=agg)
+    want = jax_window_agg(jnp.asarray(x[:, :4]), window=4, agg=agg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("agg", ["sum", "mean", "max"])
+def test_window_agg_takes_a_halo_over_shared_memory_as_jax_does(agg):
+    """(300, 1000) at window 100: 400,000 bytes of halo, past a block's
+    shared memory. The card takes the global kernel; here the plain
+    version answers as the JAX wrapper does (it grows its block to the
+    window)."""
+    x = np.random.default_rng(13).normal(0, 1, (300, 1000)).astype(np.float32)
+    assert window_plan(300, 1000, 100, agg, 1 << 20).variant == "global"
+    out = window_agg(torch.from_numpy(x), window=100, agg=agg)
+    want = jax_window_agg(jnp.asarray(x), window=100, agg=agg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+def _attention_inputs(shapes, dtype, seed):
+    """numpy normals as (JAX, torch) pairs of the same values in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    out = []
+    for shape in shapes:
+        j = jnp.asarray(rng.normal(0, 1, shape), jdt)
+        out.append((j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)))
+    return out
+
+
+def _attention_tol(dtype):
+    # tests/test_kernels.py:17
+    return dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16" else dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_takes_head_dim_288_as_jax_does(dtype):
+    assert flash_variant(288) == "wide" and flash_variant(256) == "tile"
+    assert padded_head_dim(288, torch.bfloat16) == 288  # the wide kernel pads nothing
+    (qj, q), (kj, k), (vj, v) = _attention_inputs(
+        [(1, 40, 4, 288), (1, 40, 2, 288), (1, 40, 2, 288)], dtype, 14
+    )
+    out = flash_attention(q, k, v, causal=True, window=16, softcap=30.0)
+    want = jax_flash_attention(qj, kj, vj, causal=True, window=16, softcap=30.0)
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(want.astype(jnp.float32)), **_attention_tol(dtype)
+    )
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_takes_head_dim_288_as_jax_does(dtype):
+    assert decode_variant(288) == "wide" and decode_variant(256) == "split"
+    (qj, q), (kj, k), (vj, v) = _attention_inputs(
+        [(2, 4, 288), (2, 50, 2, 288), (2, 50, 2, 288)], dtype, 15
+    )
+    valid = np.random.default_rng(16).random((2, 50)) > 0.3
+    out = decode_attention(q, k, v, torch.from_numpy(valid), softcap=20.0)
+    want = jax_decode_attention(qj, kj, vj, jnp.asarray(valid), softcap=20.0)
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(want.astype(jnp.float32)), **_attention_tol(dtype)
+    )
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_takes_a_transposed_q_as_jax_does(dtype):
+    """q made (B, H, S, D) and handed over as its (B, S, H, D) transpose;
+    k and v as views too."""
+    (qj, q), (kj, k), (vj, v) = _attention_inputs(
+        [(1, 4, 64, 32), (1, 2, 64, 32), (1, 2, 64, 32)], dtype, 17
+    )
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    assert not qt.is_contiguous()
+    out = flash_attention(qt, kt, vt, causal=True)
+    want = jax_flash_attention(*(x.transpose(0, 2, 1, 3) for x in (qj, kj, vj)), causal=True)
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(want.astype(jnp.float32)), **_attention_tol(dtype)
+    )

@@ -158,7 +158,7 @@ def test_ds_kernel_attributes(cuda):
         for ptr in (aligned, aligned + 4):
             attrs = kmeans_attrs(kmeans_plan(500_000, d, k, ptr), d)
             assert 0 < attrs["registers"] <= 255 and attrs["local_bytes"] == 0
-    for c, w in ((4, 16), (4, 1), (5, 8)):
+    for c, w in ((4, 16), (4, 1), (5, 8), (1000, 100)):  # scan, general, global
         for agg in ("sum", "mean", "max"):
             attrs = window_attrs(window_plan(500_000, c, w, agg, aligned), agg)
             assert 0 < attrs["registers"] <= 255 and attrs["local_bytes"] == 0
@@ -166,15 +166,48 @@ def test_ds_kernel_attributes(cuda):
 
 @pytest.mark.gpu
 def test_cuda_tensors_never_take_the_plain_version(cuda):
+    """A non-contiguous CUDA tensor is copied and launches the kernel; a
+    call the kernels cannot take raises and launches nothing."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn((1000, 8), generator=g).to(cuda)
+    c = torch.randn((5, 2), generator=g).to(cuda)
     before = (kmeans_assign.launches, window_agg.launches)
-    x = torch.zeros((64, 8), device=cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        kmeans_assign(x.T, torch.zeros((3, 64), device=cuda))
-    with pytest.raises(ValueError, match="contiguous"):
-        window_agg(x.T, window=4)
+    a, d2 = kmeans_assign(x[:, :2], c)
+    out = window_agg(x[:, :4], window=4, agg="mean")
+    torch.cuda.synchronize()
+    assert (kmeans_assign.launches, window_agg.launches) == (before[0] + 1, before[1] + 1)
+    ar, d2r = kmeans_assign_ref(x[:, :2], c)
+    assert torch.equal(a, ar)
+    torch.testing.assert_close(d2, d2r, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(out, window_agg_ref(x[:, :4], window=4), rtol=2e-4, atol=2e-4)
+    before = (kmeans_assign.launches, window_agg.launches)
     with pytest.raises(ValueError, match="but cent on"):
         kmeans_assign(x, torch.zeros((3, 8)))  # centroids left on the CPU
     assert (kmeans_assign.launches, window_agg.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["sum", "mean", "max"])
+@pytest.mark.parametrize("S,C,w", [(300, 1000, 100), (5000, 64, 1000), (777, 232, 300)])
+def test_window_agg_global_kernel_vs_plain(cuda, S, C, w, agg):
+    """A halo over shared memory takes the global kernel: twice
+    (bit-identical), max exact, sum and mean at the float32 tolerance of
+    tests/test_kernels.py:17."""
+    from repro_torch.kernels.window_agg.ops import window_plan
+
+    g = torch.Generator(device="cpu").manual_seed(S + C + w)
+    x = torch.randn((S, C), generator=g).to(cuda)
+    assert window_plan(S, C, w, agg, x.data_ptr()).variant == "global"
+    before = window_agg.launches
+    out = window_agg(x, window=w, agg=agg)
+    again = window_agg(x, window=w, agg=agg)
+    torch.cuda.synchronize()
+    assert window_agg.launches == before + 2
+    assert torch.equal(out, again)
+    ref = window_agg_ref(x, window=w, agg=agg)
+    if agg == "max":
+        assert torch.equal(out, ref)
+    torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.gpu
@@ -344,6 +377,63 @@ def test_decode_attention_split_cases(cuda, B, Hq, Hkv, C, D, mask, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,Hq,Hkv,D,causal,window,cap",
+    [
+        (1, 200, 4, 2, 288, True, 0, 0.0),
+        (2, 77, 4, 1, 300, True, 16, 30.0),
+        (1, 96, 2, 2, 512, False, 0, 0.0),
+        (1, 1, 2, 1, 288, True, 0, 0.0),
+    ],
+)
+def test_flash_attention_wide_kernel_vs_plain(cuda, B, S, Hq, Hkv, D, causal, window, cap, dtype):
+    """Head dims over 256 take the wide kernel, in both types: twice
+    (bit-identical), against the plain version."""
+    from repro_torch.kernels.flash_attention.ops import flash_variant
+
+    assert flash_variant(D) == "wide"
+    q = _randn((B, S, Hq, D), S + D, dtype, cuda)
+    k = _randn((B, S, Hkv, D), S + D + 1, dtype, cuda)
+    v = _randn((B, S, Hkv, D), S + D + 2, dtype, cuda)
+    _flash_vs_plain(q, k, v, causal=causal, window=window, softcap=cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,C,D,cap",
+    [(2, 4, 2, 300, 288, 0.0), (1, 8, 8, 100, 640, 50.0), (8, 16, 8, 2048, 288, 0.0)],
+)
+def test_decode_attention_wide_kernel_vs_plain(cuda, B, Hq, Hkv, C, D, cap, dtype):
+    """Head dims over 256 take the wide split kernel and the same combine:
+    scattered masks with a whole split invalid and an all-invalid row
+    (exactly 0), twice (bit-identical), against the plain version."""
+    from repro_torch.kernels.decode_attention.ops import decode_variant
+
+    assert decode_variant(D) == "wide"
+    q = _randn((B, Hq, D), C + D, dtype, cuda)
+    k = _randn((B, C, Hkv, D), C + D + 1, dtype, cuda)
+    v = _randn((B, C, Hkv, D), C + D + 2, dtype, cuda)
+    g = torch.Generator(device="cpu").manual_seed(C + D)
+    valid = torch.rand((B, C), generator=g) > 0.4
+    n_split, split = split_plan(B, Hkv, C, _sm_count(cuda))
+    if n_split > 1:
+        valid[:, split : 2 * split] = False
+    valid[0] = False
+    valid = valid.to(cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, valid, softcap=cap)
+    again = decode_attention(q, k, v, valid, softcap=cap)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    ref = decode_attention_ref(q, k, v, valid, softcap=cap)
+    torch.testing.assert_close(out, ref, **TOL[dtype])
+
+
+@pytest.mark.gpu
 def test_decode_split_plan_fills_the_card_at_the_serving_shape(cuda):
     n_split, _ = split_plan(8, 8, 2048, _sm_count(cuda))
     assert 8 * 8 * n_split > _sm_count(cuda)
@@ -358,14 +448,47 @@ def test_attention_kernel_attributes(cuda):
         for attrs in (flash_attrs(dtype, 128), decode_attrs(dtype, 128, 2)):
             assert 0 < attrs["registers"] <= 255
             assert attrs["local_bytes"] == 0  # no spills at the serving shape
+        for attrs in (flash_attrs(dtype, 288), decode_attrs(dtype, 288, 2)):  # wide
+            assert 0 < attrs["registers"] <= 255 and attrs["local_bytes"] == 0
 
 
 @pytest.mark.gpu
 def test_attention_wrappers_raise_instead_of_taking_the_plain_version(cuda):
+    """Non-contiguous CUDA inputs are copied and launch the kernels; a call
+    the kernels cannot take raises and launches nothing."""
+    for dtype in (torch.float32, torch.bfloat16):
+        qt = _randn((1, 8, 77, 64), 1, dtype, cuda).transpose(1, 2)  # (B, S, H, D) view
+        k = _randn((1, 77, 4, 64), 2, dtype, cuda)
+        v = _randn((1, 4, 77, 64), 3, dtype, cuda).transpose(1, 2)
+        before = flash_attention.launches
+        out = flash_attention(qt, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        ref = flash_attention_ref(qt.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        torch.testing.assert_close(out, ref.transpose(1, 2), **TOL[dtype])
+        qd = _randn((4, 2, 64), 4, dtype, cuda).transpose(0, 1)  # (B, Hq, D) view
+        kd = _randn((2, 300, 2, 64), 5, dtype, cuda)
+        vd = _randn((2, 2, 300, 64), 6, dtype, cuda).transpose(1, 2)
+        valid = (torch.rand((300, 2), generator=torch.Generator().manual_seed(7)) > 0.3).to(cuda).T
+        before = decode_attention.launches
+        out = decode_attention(qd, kd, vd, valid)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        torch.testing.assert_close(out, decode_attention_ref(qd, kd, vd, valid), **TOL[dtype])
+    # contiguous bf16 views 2 bytes past their allocation: TMA wants 16-byte
+    # aligned rows, so the wrapper copies them
+    shape = (1, 64, 4, 64)
+    q, k, v = (
+        _randn((1 + 64 * 4 * 64,), i, torch.bfloat16, cuda)[1:].view(shape) for i in (8, 9, 10)
+    )
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    torch.testing.assert_close(out, ref.transpose(1, 2), **TOL[torch.bfloat16])
     before = (flash_attention.launches, decode_attention.launches)
-    x = torch.zeros((1, 16, 8, 2, 8), device=cuda)[..., 0].transpose(1, 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_attention(x, x, x)
     q = torch.zeros((2, 4, 32), device=cuda)
     kv = torch.zeros((2, 10, 2, 32), device=cuda)
     with pytest.raises(ValueError, match="valid on"):
