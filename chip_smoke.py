@@ -77,18 +77,38 @@ Phases, each fatal on failure:
    first 8 requests are served again with plain attention: bf16 prefill
    logits within twice phase 5's plain spread, and in float32 compute
    (kernels and plain) logits within 2e-4 and token streams equal up to
-   each request's first near tie.
+   each request's first near tie;
+8. the jamba-v0.1 path: one 8-layer period of jamba-v0.1-52b at full
+   width (7 Mamba layers, 1 NoPE attention layer, 4 MoE layers of 16
+   experts, top-2; 13.3 B parameters, drawn in bf16 from seed 0) serves
+   8 requests (prompts of 32-256 tokens, 4-16 new tokens; numpy's
+   default_rng(1)) through the port's ``ServeEngine`` with 8 slots and a
+   512-token cache. The attention kernels' launches, read for this run
+   alone, must equal one per prefill and one per decode tick for each
+   attention layer, and be nonzero. The trace is served again with plain
+   attention (bf16 prefill logits within twice the plain version's own
+   spread in another KV chunk), then its first 2 requests with float32
+   weights and compute, kernels and plain (logits within 2e-4, streams
+   equal up to the first near tie). Prints the decode ms a tick, the
+   tokens/s, a profiled tick and the tick's bound from the bytes it must
+   read;
+9. the llama-3.2-vision path: llama-3.2-vision-11b at full width and depth
+   (40 layers, 8 of them cross-attention over 1600 patch embeddings from
+   the frontend stub, passed as ``ServeEngine(..., vision=...)``), with
+   phase 8's trace, engine and checks.
 
 Prints the card line, JSON lines of the attention and DS kernels' reports
 and one JSON line of kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. In that line, the DS kernels' launches
-are phase 4's and the attention kernels' phase 7's (phase 5's are printed
-above it). Exits non-zero, printing no result, when there is no CUDA card.
+are phase 4's and the attention kernels' the sum over phases 5, 7, 8 and
+9 (each phase's are printed above it). Exits non-zero, printing no result,
+when there is no CUDA card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -156,6 +176,18 @@ GATEWAY_CHECKED = 8
 #: the variants' shapes: the window over shared memory, head dim 288
 WIDE_WINDOW = (300, 1000, 100)
 WIDE_HEAD_DIM = 288
+#: phases 8 and 9: MoE, Mamba and cross-attention blocks at full width.
+#: arch → depth: jamba-v0.1 is cut to one 8-layer period (its 32 layers'
+#: 103 GB of bf16 weights do not fit one 80 GB card); llama-3.2-vision
+#: keeps its 40 layers
+BLOCK_MODELS = {"jamba-v0.1-52b": 8, "llama-3.2-vision-11b": None}
+BLOCK_ENGINE = {"max_batch": 8, "max_seq": 512, "policy": "eft"}
+BLOCK_REQUESTS = 8
+#: the float32 run's requests (jamba's float32 weights are 53 GB)
+BLOCK_FLOAT32_REQUESTS = 2
+#: the plain version's other KV chunk for the bf16 spread: prompts are
+#: 32-256 tokens, so every longer one is summed in another order
+BLOCK_SPREAD_CHUNK = 32
 
 
 def phase(name):
@@ -566,18 +598,18 @@ class ServeRun:
         self._last = None
         prefill, decode, step = self.eng._prefill, self.eng._decode, self.eng.step
 
-        def timed_prefill(params, tokens, caches):
+        def timed_prefill(params, tokens, caches, vision=None):
             t0 = time.perf_counter()
-            logits, caches = prefill(params, tokens, caches)
+            logits, caches = prefill(params, tokens, caches, vision=vision)
             torch.cuda.synchronize()
             self.prefill_s += time.perf_counter() - t0
             self.prefill_tokens += tokens.shape[1]
             self._last = logits[0]
             return logits, caches
 
-        def timed_decode(params, tok, pos, caches):
+        def timed_decode(params, tok, pos, caches, vision=None):
             t0 = time.perf_counter()
-            nxt, logits, caches = decode(params, tok, pos, caches)
+            nxt, logits, caches = decode(params, tok, pos, caches, vision=vision)
             torch.cuda.synchronize()
             self.decode_s += time.perf_counter() - t0
             self.decode_ticks += 1
@@ -672,17 +704,7 @@ def run_serving(dev, cfg, trace):
 
     stats = {}
     for name, r in (("kernels", main), ("plain", plain)):
-        tokens = sum(len(q.output) for q in r.done.values())
-        stats[name] = {
-            "wall_s": r.wall,
-            "prefill_ms_per_token": r.prefill_s * 1e3 / r.prefill_tokens,
-            "decode_ms_per_tick": r.decode_s * 1e3 / r.decode_ticks,
-            "tokens_per_s": tokens / r.wall,
-            "prefills": len(r.prefill_logits),
-            "decode_ticks": r.decode_ticks,
-            "tokens": tokens,
-            "engine_ticks": r.ticks,
-        }
+        stats[name] = run_stats(r)
         print(f"serving ({name} attention): {json.dumps(stats[name])}")
     print(f"engine latency stats: {json.dumps(main.latency)}")
     stats["decode_tick_profile"] = tick
@@ -690,15 +712,34 @@ def run_serving(dev, cfg, trace):
     return launches, stats, errs, params
 
 
-def profile_decode(cfg, params, trace, ticks=3):
+def run_stats(r):
+    """A finished ``ServeRun``'s serving numbers (host clock, card
+    synchronised)."""
+    tokens = sum(len(q.output) for q in r.done.values())
+    return {
+        "wall_s": r.wall,
+        "prefill_ms_per_token": r.prefill_s * 1e3 / r.prefill_tokens,
+        "decode_ms_per_tick": r.decode_s * 1e3 / r.decode_ticks,
+        "tokens_per_s": tokens / r.wall,
+        "prefills": len(r.prefill_logits),
+        "decode_ticks": r.decode_ticks,
+        "tokens": tokens,
+        "engine_ticks": r.ticks,
+    }
+
+
+def profile_decode(cfg, params, trace, ticks=3, engine=None, new_tokens=64):
     """Decode ticks at a full batch (8 slots): host ms per tick (no
     profiler), then under ``torch.profiler`` the kernels launched and the
-    device time per tick, by kernel."""
+    device time per tick, by kernel. ``engine``, when given, is the
+    engine to fill (phase 5's by default)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    b = SERVE_ENGINE["max_batch"]
-    run = ServeRun(cfg, params, [(p, 64, 0.0) for p, _, _ in trace[:b]], plain=False)
+    b = SERVE_ENGINE["max_batch"] if engine is None else engine.ecfg.max_batch
+    run = ServeRun(
+        cfg, params, [(p, new_tokens, 0.0) for p, _, _ in trace[:b]], plain=False, engine=engine
+    )
     eng = run.eng
     while any(s is None for s in eng.slots):
         eng.step()  # admit all requests, one prefill a tick
@@ -767,19 +808,24 @@ def compare_runs(kern, plain, tol):
     return errs
 
 
-def plain_spread(cfg, params, trace, logits):
+def plain_spread(cfg, params, trace, logits, chunk=128, max_seq=None, vision=None):
     """Per request: the plain version's prefill logits with another KV chunk
-    (another order of the same f32 sums) against ``logits``."""
+    (``chunk``: another order of the same f32 sums) against ``logits``.
+    ``vision`` is what the engine's prefill passes the cross-attention
+    blocks."""
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
+    from repro_torch.serve.serve_step import serve_config
 
-    other = dataclasses.replace(cfg, attn_chunk=128)
+    # the engine's config: MoE capacity widened at serve time
+    other = dataclasses.replace(serve_config(cfg), attn_chunk=chunk)
     cast = M.cast_params(cfg, params)
+    max_seq = max_seq or SERVE_ENGINE["max_seq"]
     out = []
     for rid, (prompt, _, _) in enumerate(trace):
         toks = torch.as_tensor(prompt, device=cast["final_norm"]["scale"].device)[None]
-        caches = T.init_caches(other, 1, SERVE_ENGINE["max_seq"], device=toks.device)
-        got, _ = M.prefill(other, cast, toks, caches, plain_attention=True)
+        caches = T.init_caches(other, 1, max_seq, device=toks.device)
+        got, _ = M.prefill(other, cast, toks, caches, vision=vision, plain_attention=True)
         out.append(float((got[0].float().cpu() - logits[rid]).abs().max()))
     return out
 
@@ -928,6 +974,170 @@ def run_gateway(dev, cfg, params, bf16_spread):
     err32 = compare_runs(*runs32, F32_TOL)
     print(f"gateway, float32: max |prefill logits, kernels - plain| {max(err32):.3e} (bound {F32_TOL})")
     return launches, replay, {"bf16": max(err), "float32": max(err32)}
+
+
+# -- phases 8 and 9 ------------------------------------------------------------
+
+
+def free_card():
+    """Return freed tensors to the card: an engine whose ``step`` a
+    ``ServeRun`` wrapped holds itself (and its weights) in a reference
+    cycle, which only the cyclic collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def block_cfg(arch):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    depth = BLOCK_MODELS[arch]
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def block_trace(cfg):
+    """(prompt, max_new_tokens, arrival) per request, from numpy's
+    default_rng(1): prompts of 32-256 tokens, 4-16 new tokens."""
+    rng = np.random.default_rng(1)
+    trace = []
+    for i in range(BLOCK_REQUESTS):
+        prompt = rng.integers(2, cfg.vocab_size, size=int(rng.integers(32, 257))).astype(np.int32)
+        trace.append((prompt, int(rng.integers(4, 17)), i * 0.25))
+    return trace
+
+
+def self_attention_layers(cfg):
+    """The layers that launch flash at prefill and decode at decode."""
+    return sum(cfg.block_spec(i).mixer in ("attn", "local") for i in range(cfg.n_layers))
+
+
+def decode_tick_bytes(cfg, params, vision, caches):
+    """Bytes one decode tick must read at least: every weight (the dense
+    MoE dispatch runs every expert; the embedding table only gives its
+    rows, unless it is also the head), the patch embeddings and the
+    caches, each once."""
+    from repro_torch import convert
+
+    total = sum(t.numel() * t.element_size() for t in convert.leaves(params))
+    if not cfg.tie_embeddings:
+        emb = params["embed"]["embedding"]
+        total -= emb.numel() * emb.element_size()
+    total += sum(t.numel() * t.element_size() for t in convert.leaves(caches))
+    if vision is not None:
+        total += vision.numel() * vision.element_size()
+    return total
+
+
+def run_block_model(dev, arch):
+    """Serve the arch at full width through the port's ``ServeEngine``:
+    bf16 weights and compute, with the kernels and then with plain
+    attention (prefill logits within twice the plain version's own spread),
+    then float32 weights and compute on the first requests (logits within
+    2e-4, streams up to the first near tie). The attention kernels'
+    launches are read for the bf16 kernel run alone."""
+    from repro_torch import convert
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import frontends
+    from repro_torch.models import model as M
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    cfg = block_cfg(arch)
+    trace = block_trace(cfg)
+    n_attn = self_attention_layers(cfg)
+    vision = None
+    if cfg.family == "vlm":
+        vision = torch.as_tensor(frontends.fake_patch_embeddings(cfg, 1)[0], device=dev)
+    ecfg = EngineConfig(**BLOCK_ENGINE)
+
+    def engine(c, params, plain):
+        return ServeEngine(c, params, dataclasses.replace(ecfg, plain_attention=plain), vision=vision)
+
+    # bf16 masters: a float32 copy beside them would not fit beside jamba's
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = M.init(cfg16, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in convert.leaves(params))
+    specs = [cfg.block_spec(i) for i in range(cfg.n_layers)]
+    print(
+        f"{cfg.name}: {cfg.n_layers} layers ({sum(s.mixer == 'mamba' for s in specs)} Mamba, "
+        f"{n_attn} attention, {sum(s.mixer == 'xattn' for s in specs)} cross-attention, "
+        f"{sum(s.moe for s in specs)} MoE), {n_params} parameters in bf16, drawn in "
+        f"{time.perf_counter() - t0:.3f} s"
+    )
+    for plain in (False, True):  # warm-up
+        ServeRun(cfg16, params, [(trace[0][0][:32], 2, 0.0)], plain, engine=engine(cfg16, params, plain)).run()
+    torch.cuda.synchronize()
+
+    flash_attention.launches = decode_attention.launches = 0
+    main = ServeRun(cfg16, params, trace, plain=False, engine=engine(cfg16, params, False)).run()
+    launches = {
+        "flash_attention": flash_attention.launches,
+        "decode_attention": decode_attention.launches,
+    }
+    print(f"launches on the {cfg.name} path: {launches}")
+    want = {
+        "flash_attention": n_attn * len(main.prefill_logits),
+        "decode_attention": n_attn * main.decode_ticks,
+    }
+    if launches != want or not all(launches.values()):
+        raise AssertionError(f"the trace implies {want} launches, the run made {launches}")
+    check_lengths(main, len(trace))
+    tick_bytes = decode_tick_bytes(cfg16, params, vision, main.eng.caches)
+    main.eng = None
+    tick = profile_decode(cfg16, params, trace, engine=engine(cfg16, params, False), new_tokens=16)
+    plain = ServeRun(cfg16, params, trace, plain=True, engine=engine(cfg16, params, True)).run()
+    plain.eng = None
+    check_lengths(plain, len(trace))
+    prefill_vision = None if vision is None else vision[None, 0][None]
+    spread = plain_spread(
+        cfg16,
+        params,
+        trace,
+        plain.prefill_logits,
+        chunk=BLOCK_SPREAD_CHUNK,
+        max_seq=BLOCK_ENGINE["max_seq"],
+        vision=prefill_vision,
+    )
+    err = compare_runs(main, plain, None)
+    print(
+        f"{cfg.name}, bf16: max |prefill logits, kernels - plain| {max(err):.3e}; "
+        f"the plain version in two orders of summation: {max(spread):.3e}"
+    )
+    if max(err) > 2 * max(spread):
+        raise AssertionError(f"{cfg.name}: bf16 kernel logits part from plain beyond twice its spread")
+    stats = {}
+    for name, r in (("kernels", main), ("plain", plain)):
+        stats[name] = run_stats(r)
+        print(f"{cfg.name} serving ({name} attention): {json.dumps(stats[name])}")
+    bound_ms = tick_bytes / HBM_BYTES_PER_S * 1e3
+    print(
+        f"{cfg.name} decode tick: {stats['kernels']['decode_ms_per_tick']:.3f} ms on the host "
+        f"clock; bound from the {tick_bytes} bytes it must read: {bound_ms:.3f} ms"
+    )
+    stats["decode_tick_profile"] = tick
+    stats["decode_tick_bytes"] = tick_bytes
+    stats["decode_tick_bound_ms"] = bound_ms
+    del params, main, plain
+    free_card()
+
+    # float32 weights and compute on the first requests
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params = M.init(cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+    few = [(p, n, 0.0) for p, n, _ in trace[:BLOCK_FLOAT32_REQUESTS]]
+    runs32 = []
+    for p in (False, True):
+        r = ServeRun(cfg32, params, few, plain=p, engine=engine(cfg32, params, p)).run()
+        r.eng = None
+        check_lengths(r, len(few))
+        runs32.append(r)
+    err32 = compare_runs(*runs32, F32_TOL)
+    print(f"{cfg.name}, float32: max |prefill logits, kernels - plain| {max(err32):.3e} (bound {F32_TOL})")
+    del params, runs32
+    free_card()
+    errs = {"bf16": max(err), "bf16_plain_spread": max(spread), "float32": max(err32)}
+    return launches, stats, errs
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1312,9 +1522,20 @@ def main() -> int:
     gateway_launches, gateway_stats, gateway_err = run_gateway(
         dev, cfg, params, serve_err["bf16_plain_spread"]
     )
-    launches.update(gateway_launches)
     del params
     print(f"gateway phase: {time.perf_counter() - t0:.3f} s")
+    free_card()
+
+    blocks = {}
+    for n, arch in enumerate(BLOCK_MODELS, start=8):
+        phase(f"{n}. {arch} path")
+        t0 = time.perf_counter()
+        blocks[arch] = run_block_model(dev, arch)
+        print(f"{arch} phase: {time.perf_counter() - t0:.3f} s")
+    # the attention kernels' launches: every serving phase's path
+    for name in ("flash_attention", "decode_attention"):
+        launches[name] = serve_launches[name] + gateway_launches[name]
+        launches[name] += sum(b[0][name] for b in blocks.values())
     meta = {
         "kmeans_assign": (
             "src/repro_torch/csrc/kmeans_assign.cu",
@@ -1362,6 +1583,11 @@ def main() -> int:
     print(f"serving launches (phase 5): {json.dumps(serve_launches)}")
     print(f"gateway: {json.dumps(gateway_stats)}")
     print(f"gateway, max |prefill logits, kernels - plain|: {json.dumps(gateway_err)}")
+    print(f"gateway launches (phase 7): {json.dumps(gateway_launches)}")
+    for arch, (block_launches, block_stats, block_err) in blocks.items():
+        print(f"{arch}: {json.dumps(block_stats)}")
+        print(f"{arch}, max |prefill logits, kernels - plain|: {json.dumps(block_err)}")
+        print(f"{arch} launches: {json.dumps(block_launches)}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -8,7 +8,8 @@ paper's EFT rule, edf) and prints latency stats from the engine's
 abstract clock, with the wall time of each run. The full config on the
 card is the default; ``--smoke`` takes the arch's reduced config and
 ``--cpu`` the CPU (the attention kernels' plain versions). Weights are
-random, from seed 0.
+random, from seed 0; a VLM arch gets the frontend stub's patch
+embeddings, as in the reference launcher.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.vos import ValueCurve
+from repro_torch.models import frontends
 from repro_torch.models import model as model_lib
 from repro_torch.serve.engine import EngineConfig, RequestSpec, ServeEngine
 
@@ -61,12 +63,13 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch, smoke=args.smoke)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model_lib.init(cfg, gen, device)
+    vision = frontends.fake_patch_embeddings(cfg, 1)[0] if cfg.family == "vlm" else None
     policies = ("fcfs", "eft", "edf") if args.policy == "all" else (args.policy,)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"{cfg.name} on {name}")
     for policy in policies:
         ecfg = EngineConfig(max_batch=args.max_batch, max_seq=args.max_seq, policy=policy)
-        eng = ServeEngine(cfg, params, ecfg)
+        eng = ServeEngine(cfg, params, ecfg, vision=vision)
         for r in synth_requests(cfg, args.requests):
             eng.submit(r)
         t0 = time.perf_counter()

@@ -1,9 +1,12 @@
 """LM wrapper: embed → backbone → head; prefill; decode.
 
 A port of ``repro.models.model`` (serving half; the training loss waits
-for the training slice). Functions over explicit parameter trees of the
-JAX package's shape. The weights come from :func:`init` with a seeded
-:class:`torch.Generator`, or from the JAX package's own ``init`` through
+for the training slice). Modality frontends enter as precomputed inputs
+(``repro_torch.models.frontends``): codec token ids, or patch embeddings
+passed as ``vision`` to the cross-attention blocks. Functions over
+explicit parameter trees of the JAX package's shape. The weights come
+from :func:`init` with a seeded :class:`torch.Generator`, or from the JAX
+package's own ``init`` through
 ``repro_torch.convert.params_from_reference``.
 """
 
@@ -61,32 +64,43 @@ def forward(
     params: Params,
     tokens: torch.Tensor,
     *,
+    vision: Optional[torch.Tensor] = None,
     positions: Optional[torch.Tensor] = None,
     caches: Optional[Params] = None,
     return_hidden: bool = False,
     plain_attention: bool = False,
-) -> Tuple[torch.Tensor, Optional[Params]]:
+    return_aux: bool = False,
+):
     """tokens (B, S) int → (logits (B, S, V), caches).
 
-    Caches are updated in place. ``return_hidden=True`` skips the LM head
-    and returns the final normed hidden states instead."""
+    Caches are updated in place. ``vision`` (B, Nv, d_model) feeds the
+    cross-attention blocks. ``return_hidden=True`` skips the LM head and
+    returns the final normed hidden states instead. ``return_aux=True``
+    appends the MoE aux losses (``transformer.AUX_KEYS``) as a third
+    value, the reference's ``aux``."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
         positions = positions[None].expand(b, s)
     x = L.embed_tokens(cfg, params["embed"], tokens)
-    x, caches = T.apply_backbone(
+    if vision is not None:
+        vision = vision.to(x.dtype)
+    x, caches, aux = T.apply_backbone(
         cfg,
         params,
         x,
         positions=positions,
+        vision=vision,
         caches=caches,
         plain_attention=plain_attention,
+        return_aux=True,
     )
     x = L.apply_norm(cfg, params["final_norm"], x)
-    if return_hidden:
-        return x, caches
-    return L.lm_logits(cfg, params["embed"], x), caches
+    if not return_hidden:
+        x = L.lm_logits(cfg, params["embed"], x)
+    if return_aux:
+        return x, caches, aux
+    return x, caches
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +114,7 @@ def prefill(
     tokens: torch.Tensor,
     caches: Params,
     *,
+    vision: Optional[torch.Tensor] = None,
     plain_attention: bool = False,
 ) -> Tuple[torch.Tensor, Params]:
     """Run the prompt through the model, filling caches.
@@ -109,6 +124,7 @@ def prefill(
         cfg,
         params,
         tokens,
+        vision=vision,
         caches=caches,
         return_hidden=True,
         plain_attention=plain_attention,
@@ -123,6 +139,7 @@ def decode_step(
     pos: torch.Tensor,
     caches: Params,
     *,
+    vision: Optional[torch.Tensor] = None,
     plain_attention: bool = False,
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step. token (B,) int, pos (B,) absolute position.
@@ -132,6 +149,7 @@ def decode_step(
         cfg,
         params,
         token[:, None],
+        vision=vision,
         positions=pos[:, None].to(torch.int32),
         caches=caches,
         plain_attention=plain_attention,
@@ -145,6 +163,7 @@ def greedy_generate(
     prompt: torch.Tensor,
     n_tokens: int,
     max_seq: int,
+    vision: Optional[torch.Tensor] = None,
     *,
     plain_attention: bool = False,
 ) -> torch.Tensor:
@@ -152,12 +171,14 @@ def greedy_generate(
     repro_torch.serve batches and schedules for real)."""
     b, s = prompt.shape
     caches = T.init_caches(cfg, b, max_seq, device=prompt.device)
-    logits, caches = prefill(cfg, params, prompt, caches, plain_attention=plain_attention)
+    logits, caches = prefill(
+        cfg, params, prompt, caches, vision=vision, plain_attention=plain_attention
+    )
     out = [torch.argmax(logits, -1)]
     for i in range(n_tokens - 1):
         pos = torch.full((b,), s + i, dtype=torch.int32, device=prompt.device)
         logits, caches = decode_step(
-            cfg, params, out[-1], pos, caches, plain_attention=plain_attention
+            cfg, params, out[-1], pos, caches, vision=vision, plain_attention=plain_attention
         )
         out.append(torch.argmax(logits, -1))
     return torch.stack(out, dim=1)

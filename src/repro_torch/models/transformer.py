@@ -10,10 +10,11 @@ scans). Caches are updated in place through those views.
 
     {"embed": {...}, "lead": [block, ...],
      "scan": [stacked_block_pos0, ...], "final_norm": {...}}
-    block = {"norm1", "norm2", "attn", "mlp", ["post_norm1", "post_norm2"]}
+    block = {"norm1", ["norm2"], ("attn"|"mamba"|"xattn"), ["mlp"|"moe"],
+             ["post_norm1", "post_norm2"]}
 
-The port serves dense attention models; Mamba, cross-attention and MoE
-blocks raise ``NotImplementedError``.
+A Mamba block's cache is its SSM state ``{"h", "conv"}``, written back in
+place like the KV cache; a cross-attention block's is ``{}``.
 """
 
 from __future__ import annotations
@@ -23,27 +24,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.kvcache import init_kv_cache, layer_capacity
 
 Params = Dict[str, Any]
-
-
-def _unported(spec: BlockSpec) -> None:
-    if spec.mixer == "mamba":
-        raise NotImplementedError(
-            "Mamba blocks are not ported yet (ROADMAP.md queue 1, slice 2, item 8)"
-        )
-    if spec.mixer == "xattn":
-        raise NotImplementedError(
-            "cross-attention blocks are not ported yet (ROADMAP.md queue 1, slice 2, "
-            "item 8)"
-        )
-    if spec.moe:
-        raise NotImplementedError(
-            "MoE feed-forward blocks are not ported yet (ROADMAP.md queue 1, "
-            "slice 2, item 8)"
-        )
 
 
 def tree_map(fn: Callable, *trees: Any) -> Any:
@@ -61,6 +47,23 @@ def _stack(trees: List[Params]) -> Params:
 
 
 # ---------------------------------------------------------------------------
+# Aux losses of the MoE blocks
+# ---------------------------------------------------------------------------
+
+AUX_KEYS = ("aux_loss", "z_loss", "dropped_frac")
+
+
+def _zero_aux(device="cpu") -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device) for k in AUX_KEYS}
+
+
+def _add_aux(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    if not b:
+        return a
+    return {k: a[k] + b.get(k, 0.0) for k in AUX_KEYS}
+
+
+# ---------------------------------------------------------------------------
 # Single block
 # ---------------------------------------------------------------------------
 
@@ -68,11 +71,21 @@ def _stack(trees: List[Params]) -> Params:
 def init_block(
     cfg: ModelConfig, spec: BlockSpec, gen: torch.Generator, device, lead: bool = False
 ) -> Params:
-    _unported(spec)
     p: Params = {"norm1": L.init_norm(cfg, device), "norm2": L.init_norm(cfg, device)}
-    p["attn"] = L.init_attention(cfg, gen, device)
-    d_ff = (cfg.first_dense_d_ff or None) if lead else None
-    p["mlp"] = L.init_mlp(cfg, gen, device, d_ff=d_ff)
+    if spec.mixer == "mamba":
+        p["mamba"] = ssm_lib.init_mamba(cfg, gen, device)
+    elif spec.mixer == "xattn":
+        p["xattn"] = L.init_attention(cfg, gen, device)
+    else:
+        p["attn"] = L.init_attention(cfg, gen, device)
+    if spec.moe:
+        p["moe"] = moe_lib.init_moe(cfg, gen, device)
+    elif cfg.d_ff > 0:
+        d_ff = (cfg.first_dense_d_ff or None) if lead else None
+        p["mlp"] = L.init_mlp(cfg, gen, device, d_ff=d_ff)
+    else:
+        # pure Mamba-1 archs (falcon-mamba): the mixer IS the layer, no FF
+        del p["norm2"]
     if cfg.sandwich_norm:
         p["post_norm1"] = L.init_norm(cfg, device)
         p["post_norm2"] = L.init_norm(cfg, device)
@@ -86,29 +99,49 @@ def apply_block(
     x: torch.Tensor,
     *,
     positions: torch.Tensor,
+    vision: Optional[torch.Tensor] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     plain_attention: bool = False,
-) -> torch.Tensor:
-    """One block; its cache (if any) is updated in place."""
-    _unported(spec)
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One block → (x, aux). Its cache, if any, is updated in place; an
+    empty cache ``{}`` is a stateless pass, as in the reference."""
     h = L.apply_norm(cfg, p["norm1"], x)
-    y, _ = L.attention_block(
-        cfg,
-        p["attn"],
-        h,
-        positions=positions,
-        local=(spec.mixer == "local"),
-        cache=cache,
-        plain_attention=plain_attention,
-    )
+    state = cache if cache else None
+    if spec.mixer == "mamba":
+        y, new = ssm_lib.apply_mamba(cfg, p["mamba"], h, state=state)
+        if state is not None:
+            state["h"].copy_(new["h"])
+            state["conv"].copy_(new["conv"])
+    elif spec.mixer == "xattn":
+        if vision is None:
+            raise ValueError("xattn block needs vision embeddings")
+        y, _ = L.attention_block(
+            cfg, p["xattn"], h, positions=positions, local=False, kv_x=vision
+        )
+    else:
+        y, _ = L.attention_block(
+            cfg,
+            p["attn"],
+            h,
+            positions=positions,
+            local=(spec.mixer == "local"),
+            cache=state,
+            plain_attention=plain_attention,
+        )
     if cfg.sandwich_norm:
         y = L.apply_norm(cfg, p["post_norm1"], y)
     x = x + y
+
+    if "norm2" not in p:  # FF-less block (pure Mamba-1 layer)
+        return x, {}
     h = L.apply_norm(cfg, p["norm2"], x)
-    y = L.apply_mlp(cfg, p["mlp"], h)
+    if spec.moe:
+        y, aux = moe_lib.apply_moe(cfg, p["moe"], h)
+    else:
+        y, aux = L.apply_mlp(cfg, p["mlp"], h), {}
     if cfg.sandwich_norm:
         y = L.apply_norm(cfg, p["post_norm2"], y)
-    return x + y
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +167,14 @@ def init_backbone(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device="cpu") -> Params:
+    """KV caches for attention blocks, SSM state for Mamba blocks, ``{}``
+    for cross-attention blocks (their keys come from the vision input)."""
+
     def one(spec: BlockSpec) -> Dict[str, torch.Tensor]:
-        _unported(spec)
+        if spec.mixer == "mamba":
+            return ssm_lib.init_ssm_state(cfg, batch, device=device)
+        if spec.mixer == "xattn":
+            return {}
         cap = layer_capacity(cfg, spec.mixer == "local", max_seq)
         return init_kv_cache(cfg, batch, cap, device=device)
 
@@ -143,7 +182,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device="cpu") -> Par
     scan = []
     for spec in cfg.period_specs():
         per_repeat = [one(spec) for _ in range(cfg.n_repeats)]
-        scan.append(_stack(per_repeat) if per_repeat else {})
+        scan.append(_stack(per_repeat) if per_repeat and per_repeat[0] else {})
     return {"lead": lead, "scan": scan}
 
 
@@ -158,21 +197,28 @@ def apply_backbone(
     x: torch.Tensor,
     *,
     positions: torch.Tensor,
+    vision: Optional[torch.Tensor] = None,
     caches: Optional[Params] = None,
     plain_attention: bool = False,
-) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (hidden states, caches); the caches are updated in place."""
+    return_aux: bool = False,
+):
+    """Returns (hidden states, caches), and the summed MoE aux losses
+    (:data:`AUX_KEYS`) third with ``return_aux=True``. The caches are
+    updated in place."""
+    aux = _zero_aux(x.device)
     for i in range(cfg.first_k_dense):
         c = caches["lead"][i] if caches is not None else None
-        x = apply_block(
+        x, a = apply_block(
             cfg,
             cfg.block_spec(i),
             params["lead"][i],
             x,
             positions=positions,
+            vision=vision,
             cache=c,
             plain_attention=plain_attention,
         )
+        aux = _add_aux(aux, a)
     specs = cfg.period_specs()
     for r in range(cfg.n_repeats):
         for j, spec in enumerate(specs):
@@ -180,13 +226,17 @@ def apply_backbone(
             c = None
             if caches is not None:
                 c = tree_map(lambda t, r=r: t[r], caches["scan"][j])
-            x = apply_block(
+            x, a = apply_block(
                 cfg,
                 spec,
                 block,
                 x,
                 positions=positions,
+                vision=vision,
                 cache=c,
                 plain_attention=plain_attention,
             )
+            aux = _add_aux(aux, a)
+    if return_aux:
+        return x, caches, aux
     return x, caches

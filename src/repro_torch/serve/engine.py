@@ -138,7 +138,13 @@ class EngineConfig:
 
 
 class ServeEngine:
-    def __init__(self, cfg: ModelConfig, params: Any, ecfg: EngineConfig) -> None:
+    """``vision`` (Nv, d_model), when given, feeds the cross-attention
+    blocks, as the reference engine feeds them: each prefill gets
+    ``vision[None, 0]`` and each decode tick ``vision`` broadcast over the
+    slots."""
+
+    def __init__(self, cfg: ModelConfig, params: Any, ecfg: EngineConfig,
+                 vision: Optional[Any] = None) -> None:
         try:
             self._admission_key = SERVE_POLICIES[ecfg.policy]
         except KeyError:
@@ -155,6 +161,8 @@ class ServeEngine:
         self._decode = build_decode_step(
             cfg, ecfg.capacity_factor, plain_attention=ecfg.plain_attention)
         self.caches = init_serve_caches(cfg, B, ecfg.max_seq, self.device)
+        self.vision = (None if vision is None
+                       else torch.as_tensor(vision, device=self.device))
         self.slots: List[Optional[RequestSpec]] = [None] * B
         self.slot_pos = np.zeros(B, np.int32)      # next position per slot
         self.slot_tok = np.zeros(B, np.int32)      # last emitted token
@@ -192,7 +200,8 @@ class ServeEngine:
 
         Lead-layer caches are (B, …); scanned-layer caches are stacked
         (R, B, …) — batch is axis 1 there (repro_torch.models.transformer).
-        Written in place.
+        KV rows and Mamba state rows alike; the ``{}`` caches of
+        cross-attention blocks have no leaves. Written in place.
         """
         def ins_lead(c, u):
             c[b] = u[0].to(c.dtype)
@@ -218,7 +227,10 @@ class ServeEngine:
                                          device=self.device)[None]
                 fresh = init_serve_caches(self.cfg, 1, self.ecfg.max_seq,
                                           self.device)
-                logits, fresh = self._prefill(self.params, prompt, fresh)
+                vis = (self.vision[None, 0] if self.vision is not None else None)
+                vis = vis[None] if (vis is not None and vis.ndim == 2) else vis
+                logits, fresh = self._prefill(self.params, prompt, fresh,
+                                              vision=vis)
                 first = int(torch.argmax(logits[0]))
                 self._insert_slot(b, fresh)
                 req.output.append(first)
@@ -234,8 +246,12 @@ class ServeEngine:
         if active:
             tok = torch.as_tensor(self.slot_tok, device=self.device)
             pos = torch.as_tensor(self.slot_pos, device=self.device)
+            vis = None
+            if self.vision is not None:
+                vis = self.vision[None].expand(
+                    (len(self.slots),) + tuple(self.vision.shape))
             nxt, _, self.caches = self._decode(self.params, tok, pos,
-                                               self.caches)
+                                               self.caches, vision=vis)
             nxt = nxt.cpu().numpy()
             for b in active:
                 r = self.slots[b]

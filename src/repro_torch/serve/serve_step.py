@@ -1,8 +1,8 @@
 """Prefill / decode step builders (port of ``repro.serve.serve_step``).
 
 MoE capacity is widened at serve time (no-drop style) via
-``serve_config``, as in the reference, although the port has no MoE
-blocks yet.
+``serve_config``, as in the reference: capacity drops are a
+training-throughput trade, not something to serve users with.
 """
 
 from __future__ import annotations
@@ -26,9 +26,9 @@ def build_prefill_step(
 ):
     scfg = serve_config(cfg, capacity_factor)
 
-    def prefill_step(params, tokens, caches):
+    def prefill_step(params, tokens, caches, vision=None):
         return model_lib.prefill(
-            scfg, params, tokens, caches, plain_attention=plain_attention
+            scfg, params, tokens, caches, vision=vision, plain_attention=plain_attention
         )
 
     return prefill_step
@@ -40,9 +40,9 @@ def build_decode_step(
     """Greedy decoding: the next token is the argmax of the logits."""
     scfg = serve_config(cfg, capacity_factor)
 
-    def decode_step(params, token, pos, caches):
+    def decode_step(params, token, pos, caches, vision=None):
         logits, caches = model_lib.decode_step(
-            scfg, params, token, pos, caches, plain_attention=plain_attention
+            scfg, params, token, pos, caches, vision=vision, plain_attention=plain_attention
         )
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, caches
 

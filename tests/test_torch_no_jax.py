@@ -48,4 +48,4 @@ def test_port_and_chip_smoke_import_without_jax():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 60  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 63  # every module was walked, moe/ssm/frontends too
