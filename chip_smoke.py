@@ -95,13 +95,35 @@ Phases, each fatal on failure:
 9. the llama-3.2-vision path: llama-3.2-vision-11b at full width and depth
    (40 layers, 8 of them cross-attention over 1600 patch embeddings from
    the frontend stub, passed as ``ServeEngine(..., vision=...)``), with
-   phase 8's trace, engine and checks.
+   phase 8's trace, engine and checks;
+10. the training path: the flash kernel at the training shape (8 × 1024
+   tokens, 16/8 heads of 128) against its plain version, forward and
+   ``FlashAttentionFn``'s gradients (bf16 2e-2, float32 2e-4); then
+   qwen3-0.6b at full width and depth (f32 masters from seed 0, bf16
+   compute) trained 20 steps through the port's ``Trainer`` with remat:
+   AdamW (lr 1e-3, 2 warmup steps), the port's ``TokenBatchLoader``
+   (batch 8, 1024 tokens, the full vocab, 256 documents, seed 0), a
+   checkpoint every 10 steps into a temporary directory and one worker
+   death at step 15, which restores step 10. Its flash launches, counted
+   for this run alone, must be 56 a step (remat runs each block's forward
+   twice); the loss must fall; the final checkpoint must restore bit for
+   bit. Prints ms a step (median after the first), tokens a second, model
+   FLOPs a step and their share of 989 TFLOP/s (``train_mfu``), peak
+   memory, a profiled step and the losses at steps 1 and 20. Then one
+   batch's loss and gradients without remat, kernels against plain
+   attention: in bf16 the per-token losses within twice the plain path's
+   own spread over other KV chunks (128, 256, 512) and every gradient
+   leaf within 2e-2 of its largest magnitude; in float32 compute the loss
+   and every leaf within 2e-4. Last, at the training shape, the flash
+   kernel's time beside its plain version, the library and its bound,
+   and the backward it takes (the plain version's) beside the library's.
 
 Prints the card line, JSON lines of the attention and DS kernels' reports
 and one JSON line of kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. In that line, the DS kernels' launches
-are phase 4's and the attention kernels' the sum over phases 5, 7, 8 and
-9 (each phase's are printed above it). Exits non-zero, printing no result,
+are phase 4's and the attention kernels' the sum over phases 5, 7, 8, 9
+and 10 (each phase's are printed above it); flash's deviation is the
+largest of phases 3 and 10. Exits non-zero, printing no result,
 when there is no CUDA card.
 """
 
@@ -112,6 +134,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -188,6 +211,19 @@ BLOCK_FLOAT32_REQUESTS = 2
 #: the plain version's other KV chunk for the bf16 spread: prompts are
 #: 32-256 tokens, so every longer one is summed in another order
 BLOCK_SPREAD_CHUNK = 32
+#: phase 10: qwen3-0.6b trained at full width through the port's Trainer:
+#: AdamW, the loader's batches of 8 x 1024 tokens, remat, a checkpoint
+#: every 10 steps and one worker death at step 15 (restores step 10)
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 20}
+TRAIN_LOADER = {"batch_size": 8, "seq_len": 1024, "vocab_size": 151936, "n_docs": 256, "seed": 0}
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 15
+#: the plain path's other KV chunks: its own spread in other orders of summation
+TRAIN_SPREAD_CHUNKS = (128, 256, 512)
+#: bf16 gradients, kernels against plain: the largest deviation of a leaf
+#: relative to its largest magnitude (tests/test_kernels.py:17's bf16
+#: tolerance, ~2.5 bf16 ulps: every gradient passes bf16 activations)
+TRAIN_BF16_GRAD_TOL = 2e-2
 
 
 def phase(name):
@@ -1450,6 +1486,329 @@ def time_variants(dev, cfg, valid):
     return out
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+
+def train_cfg():
+    from repro_torch.configs import get_config
+
+    return get_config(TRAIN_ARCH)
+
+
+def block_weights(cfg):
+    """Weights every product of a block reads, and the tied head's."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = d * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) + 3 * d * cfg.d_ff
+    return cfg.n_layers * per_layer, d * cfg.vocab_size
+
+
+def attention_fwd_flops(cfg, b, s):
+    """The causal half of q k^T and p v, every layer: 2·S²·D a head."""
+    return cfg.n_layers * b * cfg.n_heads * 2 * s * s * cfg.head_dim
+
+
+def train_flops(cfg, b, s, remat):
+    """Model FLOPs of one step: 6·N·tokens for the products (N: the
+    blocks' weights and the tied head), attention's forward and its
+    backward (twice the forward), and with remat the blocks' forward once
+    more (2·N_blocks·tokens and attention's forward)."""
+    blocks, head = block_weights(cfg)
+    attn = attention_fwd_flops(cfg, b, s)
+    flops = 6 * (blocks + head) * b * s + 3 * attn
+    if remat:
+        flops += 2 * blocks * b * s + attn
+    return flops
+
+
+def check_train_flash(dev, cfg):
+    """The flash kernel at the training shape (B = 8, S = 1024, 16/8
+    heads of 128) in bf16 and float32: forward against the plain version
+    (twice, bit-identical), and the q, k, v gradients of
+    ``FlashAttentionFn`` against autograd through ``chunked_attention``
+    (bf16 2e-2, float32 2e-4). Returns the largest forward deviation."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.layers import chunked_attention
+
+    b, s = TRAIN_LOADER["batch_size"], TRAIN_LOADER["seq_len"]
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (t.to(dt) for t in attention_inputs(cfg, s, 21, dev, b=b))
+        err = _flash_case(q, k, v, "training shape", causal=True)
+        worst = max(worst, err) if dt == torch.bfloat16 else worst
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        gout = randn(q.shape, 25, dev).to(dt)
+        got = torch.autograd.grad(flash_attention(*leaves), leaves, gout)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        ref = chunked_attention(*leaves, q_positions=pos, kv_positions=pos)
+        want = torch.autograd.grad(ref, leaves, gout)
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        gerr = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want, strict=True))
+        print(f"flash_attention training shape {dt}: max |grad - plain grad| {gerr:.3e}")
+        for a, w in zip(got, want, strict=True):
+            torch.testing.assert_close(a, w, rtol=tol, atol=tol)
+    return worst
+
+
+def _median_event_ms(fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def time_train_attention(dev, cfg):
+    """At the training shape, one layer: the flash kernel's forward (graph
+    of 4 calls), its plain version and ``scaled_dot_product_attention``,
+    the bound; and the backward that ``FlashAttentionFn`` takes (the plain
+    ``chunked_attention`` recomputed and differentiated) beside the
+    library's backward (CUDA events, median of 5)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    b, s = TRAIN_LOADER["batch_size"], TRAIN_LOADER["seq_len"]
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = attention_inputs(cfg, s, 31, dev, b=b)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms = graph_ms([lambda: flash_attention(q, k, v)] * 4) / 4
+    plain_ms = graph_ms([lambda: flash_attention_ref(qt, kt, vt)] * 4) / 4
+    library_ms = graph_ms(
+        [lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)] * 4
+    ) / 4
+    nbytes = 2 * b * s * d * (2 * hq + 2 * hkv)
+    flops = attention_fwd_flops(cfg, b, s) // cfg.n_layers
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    gout = randn(q.shape, 35, dev).to(q.dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves)
+    bwd_ms = _median_event_ms(lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True))
+    lt = [t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lt, is_causal=True, enable_gqa=True)
+    lib_bwd_ms = _median_event_ms(
+        lambda: torch.autograd.grad(lib_out, lt, gout.transpose(1, 2), retain_graph=True)
+    )
+    row = {
+        "shape": [b, s, hq, hkv, d],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "backward_ms": bwd_ms,
+        "library_backward_ms": lib_bwd_ms,
+    }
+    print(
+        f"flash_attention at the training shape {row['shape']} bf16: {ms:.3f} ms a launch "
+        f"(plain {plain_ms:.3f}, library {library_ms:.3f}, bound {bound_ms:.3f} ms by "
+        f"{bound_by}, {bound_ms / ms:.1%} of it); its backward through the plain version "
+        f"{bwd_ms:.3f} ms a layer (library backward {lib_bwd_ms:.3f} ms)"
+    )
+    return row
+
+
+def run_training(dev, cfg):
+    """The Trainer on the card: TRAIN_STEPS steps with remat, a checkpoint
+    every TRAIN_CKPT_EVERY steps and a worker death at TRAIN_FAIL_AT.
+    Returns the flash launches of the run and its numbers; also checks
+    that the final checkpoint restores bit for bit."""
+    from repro_torch.data.loader import LoaderConfig, Prefetcher, TokenBatchLoader
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.train.fault_tolerance import FailureEvent, FailureInjector
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.tree import flatten_with_path
+
+    b, s = TRAIN_LOADER["batch_size"], TRAIN_LOADER["seq_len"]
+    injector = FailureInjector([FailureEvent(step=TRAIN_FAIL_AT, worker="w1", kind="die")])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        tcfg = TrainerConfig(
+            n_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=ckpt_dir,
+            log_every=5, remat=True, seed=0,
+        )
+        data = Prefetcher(TokenBatchLoader(LoaderConfig(**TRAIN_LOADER)))
+        trainer = Trainer(cfg, OptConfig(**TRAIN_OPT), tcfg, data, injector=injector, device=dev)
+        n_params = sum(t.numel() for _, t in flatten_with_path(trainer.state["params"]))
+        print(f"{cfg.name}: {n_params} parameters ({cfg.param_dtype} masters, {cfg.dtype} compute)")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        out = trainer.train()
+        wall = time.perf_counter() - t0
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        hist, acts = out["history"], out["recovery_log"]
+        losses = [h["loss"] for h in hist]
+        step_s = sorted(h["step_time_s"] for h in hist[1:])[len(hist[1:]) // 2]
+        flops = train_flops(cfg, b, s, remat=True)
+        stats = {
+            "steps_run": len(hist),
+            "ms_per_step": step_s * 1e3,
+            "first_step_ms": hist[0]["step_time_s"] * 1e3,
+            "tokens_per_s": b * s / step_s,
+            "model_flops_per_step": flops,
+            "train_mfu": flops / step_s / BF16_FLOP_PER_S,
+            "peak_memory_bytes": peak,
+            "flash_launches_per_step": launches / len(hist),
+            "loss_step_1": losses[0],
+            "loss_step_20": losses[-1],
+            "restarts": out["restarts"],
+            "restored_step": acts[0].restored_step if acts else None,
+            "wall_s": wall,
+        }
+        print(f"training: {json.dumps(stats)}")
+        if launches != 2 * cfg.n_layers * len(hist):
+            raise AssertionError(f"{launches} flash launches over {len(hist)} steps, not 56 a step")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall: {losses}")
+        if out["restarts"] != 1 or acts[0].restored_step != TRAIN_CKPT_EVERY:
+            raise AssertionError(f"expected one restart from step {TRAIN_CKPT_EVERY}: {acts}")
+        if hist[-1]["step"] != TRAIN_STEPS:
+            raise AssertionError(f"training ended at step {hist[-1]['step']}")
+
+        prof = profile_train_step(trainer, next(data))
+        prof["idle_share"] = 1 - prof["device_ms"] / stats["ms_per_step"]
+        print(f"the card idles {prof['idle_share']:.1%} of the median step ({stats['ms_per_step']:.3f} ms)")
+        stats["step_profile"] = prof
+
+        # checkpoint round trip: the final checkpoint against the final state
+        t0 = time.perf_counter()
+        back = trainer.ckpt.restore(trainer.state, step=TRAIN_STEPS)
+        pairs = zip(flatten_with_path(back), flatten_with_path(trainer.state), strict=True)
+        for (key, a), (_, w) in pairs:
+            if a.dtype != w.dtype or not torch.equal(a, w):
+                raise AssertionError(f"checkpoint round trip: {key} differs")
+        stats["restore_s"] = time.perf_counter() - t0
+        print(f"checkpoint round trip: {len(flatten_with_path(back))} leaves bit-equal, restored in {stats['restore_s']:.3f} s")
+        del trainer, back, data
+    free_card()
+    return {"flash_attention": launches}, stats
+
+
+def profile_train_step(trainer, batch):
+    """One more step of ``trainer`` (its step function on its state) under
+    ``torch.profiler``: device time by kernel and launches. The state is
+    not advanced."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.train_step import to_device
+
+    batch = to_device(batch, trainer.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = trainer.step_fn(trainer.state, batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(
+        f"training step under the profiler: {host_ms:.3f} ms on the host clock, {launches} "
+        f"kernels, {device_ms:.3f} ms of device time"
+    )
+    top = []
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        ms = e.self_device_time_total / 1e3
+        top.append({"kernel": e.key[:90], "ms": ms, "launches": e.count})
+        print(f"  {ms:9.3f} ms {e.count:6d} launches  {e.key[:90]}")
+    del metrics
+    return {"host_ms": host_ms, "device_ms": device_ms, "kernels": launches, "top": top}
+
+
+def _rel(a, ref):
+    return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def _token_ce(cfg, params, batch, plain):
+    """Per-token cross entropy (float32) under no_grad."""
+    from repro_torch.models import model as M
+
+    with torch.no_grad():
+        logits, _ = M.forward(cfg, params, batch["tokens"], plain_attention=plain)
+        logits = logits.float()
+        gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+        return torch.logsumexp(logits, -1) - gold
+
+
+def train_checks(dev, cfg):
+    """One batch, one loss-and-gradient each, no remat, weights from seed
+    0: the kernel path against plain attention in bf16 (beside the plain
+    path's own spread over other KV chunks) and in float32 compute."""
+    from repro_torch.data.loader import LoaderConfig, TokenBatchLoader
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.train.train_step import loss_and_grads, to_device
+    from repro_torch.train.tree import flatten_with_path
+
+    batch = to_device(next(TokenBatchLoader(LoaderConfig(**TRAIN_LOADER))), dev)
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+    def run(c, plain):
+        before = flash_attention.launches
+        grads, metrics = loss_and_grads(c, params, batch, plain_attention=plain)
+        n = flash_attention.launches - before
+        if n != (0 if plain else c.n_layers):
+            raise AssertionError(f"{n} flash launches in one {'plain' if plain else 'kernel'} step")
+        return dict(flatten_with_path(grads)), float(metrics["loss"]), _token_ce(c, params, batch, plain)
+
+    out = {}
+    gk, lk, tk = run(cfg, False)
+    gp, lp, tp = run(cfg, True)
+    spread = {"loss": 0.0, "token_ce": 0.0, "grads": {key: 0.0 for key in gp}}
+    for chunk in TRAIN_SPREAD_CHUNKS:
+        gs, ls, ts = run(dataclasses.replace(cfg, attn_chunk=chunk), True)
+        spread["loss"] = max(spread["loss"], abs(ls - lp))
+        spread["token_ce"] = max(spread["token_ce"], float((ts - tp).abs().max()))
+        for key in gp:
+            spread["grads"][key] = max(spread["grads"][key], _rel(gs[key], gp[key]))
+        del gs
+    bf16 = {
+        "loss": abs(lk - lp),
+        "token_ce": float((tk - tp).abs().max()),
+        "grads": {key: _rel(gk[key], gp[key]) for key in gp},
+        "plain_spread": spread,
+        "loss_kernels": lk,
+        "loss_plain": lp,
+    }
+    out["bf16"] = bf16
+    print(f"training bf16, kernels vs plain: {json.dumps(bf16)}")
+    # the per-token losses, as phases 5 and 8 bound logits: the mean over
+    # 8,192 tokens averages the rounding away, so its own spread is one
+    # draw of noise (its deviation is at most the largest token's)
+    if bf16["token_ce"] > 2 * spread["token_ce"]:
+        raise AssertionError("bf16 per-token losses part from plain beyond twice its own spread")
+    worst = max(bf16["grads"], key=bf16["grads"].get)
+    if bf16["grads"][worst] > TRAIN_BF16_GRAD_TOL:
+        raise AssertionError(f"bf16 gradient {worst} parts from plain by {bf16['grads'][worst]:.3e}")
+    del gk, gp
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gk, lk, tk = run(cfg32, False)
+    gp, lp, tp = run(cfg32, True)
+    f32 = {
+        "loss": abs(lk - lp),
+        "token_ce": float((tk - tp).abs().max()),
+        "grads": {key: _rel(gk[key], gp[key]) for key in gp},
+    }
+    out["float32"] = f32
+    print(f"training float32, kernels vs plain: {json.dumps(f32)}")
+    if f32["loss"] > F32_TOL or max(f32["grads"].values()) > F32_TOL:
+        raise AssertionError(f"float32 loss or gradients part from plain beyond {F32_TOL}")
+    del gk, gp, params
+    free_card()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1532,10 +1891,21 @@ def main() -> int:
         t0 = time.perf_counter()
         blocks[arch] = run_block_model(dev, arch)
         print(f"{arch} phase: {time.perf_counter() - t0:.3f} s")
-    # the attention kernels' launches: every serving phase's path
+
+    phase("10. training path")
+    t0 = time.perf_counter()
+    tcfg = train_cfg()
+    err["flash_attention"] = max(err["flash_attention"], check_train_flash(dev, tcfg))
+    train_launches, train_stats = run_training(dev, tcfg)
+    train_err = train_checks(dev, tcfg)
+    train_stats["attention"] = time_train_attention(dev, tcfg)
+    print(f"training phase: {time.perf_counter() - t0:.3f} s")
+
+    # the attention kernels' launches: every serving phase's path and training's
     for name in ("flash_attention", "decode_attention"):
         launches[name] = serve_launches[name] + gateway_launches[name]
         launches[name] += sum(b[0][name] for b in blocks.values())
+        launches[name] += train_launches.get(name, 0)
     meta = {
         "kmeans_assign": (
             "src/repro_torch/csrc/kmeans_assign.cu",
@@ -1588,6 +1958,9 @@ def main() -> int:
         print(f"{arch}: {json.dumps(block_stats)}")
         print(f"{arch}, max |prefill logits, kernels - plain|: {json.dumps(block_err)}")
         print(f"{arch} launches: {json.dumps(block_launches)}")
+    print(f"training: {json.dumps(train_stats)}")
+    print(f"training, kernels vs plain: {json.dumps(train_err)}")
+    print(f"training launches (phase 10): {json.dumps(train_launches)}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -75,6 +75,14 @@ def params_from_reference(
     return _map(leaf, tree)
 
 
+def train_state_from_reference(state: Any, device: object) -> Any:
+    """The JAX package's train state (``repro.train.train_step``'s
+    ``{"params", "opt", "step"}``, with any optimizer's state tree) as the
+    port's, leaf for leaf and type for type on ``device``: float32
+    masters and moments, int8 blocks and their scales, int32 steps."""
+    return params_from_reference(state, device)
+
+
 def to_numpy(tree: Any) -> Any:
     """Tensors → numpy arrays (via the host), keeping the structure."""
 

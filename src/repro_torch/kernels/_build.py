@@ -124,3 +124,23 @@ def check(err: int, name: str) -> None:
     """Raise when a C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def requires_grad(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors``: grad is enabled and
+    one of them requires it (training; serving builds no graph)."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record kernel ``name`` on ``tensors``.
+    The kernels write their outputs through raw pointers, so an output
+    would carry no ``grad_fn`` and ``backward()`` would silently skip the
+    op; no path of the port needs their gradient."""
+    if requires_grad(*tensors):
+        raise RuntimeError(
+            f"{name} has no backward on the card: call it on inputs that do not "
+            "require grad, or under torch.no_grad()"
+        )

@@ -116,6 +116,7 @@ def decode_attention(
         return decode_attention_ref(q, k, v, valid, softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
+    _build.refuse_grad("decode_attention", q, k, v)
     q, k, v, valid = (t.contiguous() for t in (q, k, v, valid))
     out = torch.empty_like(q)
     if q.numel() == 0:

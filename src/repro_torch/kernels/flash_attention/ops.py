@@ -14,6 +14,12 @@ copies. A CUDA tensor launches a kernel on the current stream; a CPU
 tensor of any strides and head dim takes the plain version in
 :mod:`repro_torch.kernels.flash_attention.ref`. Nothing falls back from
 one to the other.
+
+On the card, an input that requires grad (training) goes through
+:class:`FlashAttentionFn`: its forward is the kernel launch, and its
+backward is autograd through the plain ``chunked_attention`` recomputed
+from the saved q, k and v, the function whose gradient the reference's
+training takes. No backward kernel is written: the reference has none.
 """
 
 from __future__ import annotations
@@ -93,10 +99,10 @@ def flash_attention(
 
     Positions are the token indices 0..S-1 of each row: the causal and
     window masks compare them. ``flash_attention.launches`` counts kernel
-    launches."""
+    launches. On the card an input that requires grad, with grad enabled,
+    goes through :class:`FlashAttentionFn`."""
     _check(q, k, v)
-    b, s, hq, d = q.shape
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         out = flash_attention_ref(
             q.transpose(1, 2),
@@ -110,6 +116,14 @@ def flash_attention(
         return out.transpose(1, 2).contiguous()
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if _build.requires_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap, scale)
+    return _launch(q, k, v, causal, window, softcap, scale)
+
+
+def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
+    """The kernel on CUDA tensors q, k, v; counts the launch."""
+    b, s, hq, d = q.shape
     if q.numel() == 0:
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     d_pad = padded_head_dim(d, q.dtype)
@@ -143,6 +157,35 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel's output with the reference's gradient.
+
+    ``forward`` launches the kernel and saves q, k, v. ``backward``
+    recomputes the plain ``chunked_attention`` (positions 0..S-1, the same
+    causal, window, softcap and scale) on them and backpropagates through
+    it, as the reference's training differentiates that function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.attention = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        return _launch(q, k, v, causal, window, softcap, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from repro_torch.models.layers import chunked_attention
+
+        q, k, v = ctx.saved_tensors
+        b, s = q.shape[:2]
+        pos = torch.arange(s, dtype=torch.int32, device=q.device)[None].expand(b, s)
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = chunked_attention(*inputs, q_positions=pos, kv_positions=pos, **ctx.attention)
+            grads = torch.autograd.grad(out, inputs, grad)
+        grads = [g if need else None for g, need in zip(grads, ctx.needs_input_grad, strict=False)]
+        return (*grads, None, None, None, None)
 
 
 def kernel_attributes(dtype: torch.dtype, d: int) -> Dict[str, int]:

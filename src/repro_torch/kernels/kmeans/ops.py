@@ -94,6 +94,7 @@ def kmeans_assign(
         return kmeans_assign_ref(x, cent)
     if x.device.type != "cuda":
         raise ValueError(f"kmeans_assign runs on cuda or cpu, not {x.device}")
+    _build.refuse_grad("kmeans_assign", x, cent)
     x, cent = x.contiguous(), cent.contiguous()
     n, d = x.shape
     k = cent.shape[0]

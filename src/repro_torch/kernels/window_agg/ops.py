@@ -100,6 +100,7 @@ def window_agg(x: torch.Tensor, *, window: int, agg: str = "mean") -> torch.Tens
         return window_agg_ref(x, window=window, agg=agg)
     if x.device.type != "cuda":
         raise ValueError(f"window_agg runs on cuda or cpu, not {x.device}")
+    _build.refuse_grad("window_agg", x)
     x = x.contiguous()
     s, c = x.shape
     plan = window_plan(s, c, window, agg, x.data_ptr())

@@ -20,7 +20,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels._build import requires_grad
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
@@ -158,6 +160,25 @@ def _project_qkv(
     return q, k, v
 
 
+def _attend_chunk(qf, qpos, m, lsum, acc, kb, vb, pb, valid, causal, window, softcap):
+    """One KV chunk's step of the online softmax: (m, lsum, acc) updated."""
+    s = torch.einsum("bqhgd,bchd->bqhgc", qf, kb.float())
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    mask = valid[:, None, :]  # (B,1,c)
+    if causal:
+        mask = mask & (pb[:, None, :] <= qpos[:, :, None])
+    if window > 0:
+        mask = mask & (pb[:, None, :] > qpos[:, :, None] - window)
+    s = torch.where(mask[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p_ = torch.exp(s - m_new[..., None])
+    lsum = lsum * alpha + p_.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum("bqhgc,bchd->bqhgd", p_, vb.float())
+    return m_new, lsum, acc
+
+
 def chunked_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -178,6 +199,11 @@ def chunked_attention(
     indices (drive causal/window masks; decode passes offsets here).
     kv_valid: (B,Skv) bool for ring-buffer caches with unwritten slots.
     Grouped-query: Hq % Hkv == 0; scores in f32, output in q.dtype.
+
+    Under autograd each chunk's step runs under ``torch.utils.checkpoint``,
+    as the reference's ``jax.checkpoint`` body: the backward pass
+    recomputes a chunk's (B,Sq,Hkv,G,chunk) float32 scores instead of
+    keeping them for every chunk of every layer.
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -190,25 +216,17 @@ def chunked_attention(
     m = torch.full((b, sq, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
     lsum = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32, device=q.device)
+    remat = requires_grad(q, k, v)
     for c0 in range(0, skv, chunk):
-        kb = k[:, c0 : c0 + chunk].float()
-        vb = v[:, c0 : c0 + chunk].float()
-        pb = kv_positions[:, c0 : c0 + chunk]
-        s = torch.einsum("bqhgd,bchd->bqhgc", qf, kb)
-        if softcap > 0:
-            s = softcap * torch.tanh(s / softcap)
-        mask = kv_valid[:, c0 : c0 + chunk][:, None, :]  # (B,1,c)
-        if causal:
-            mask = mask & (pb[:, None, :] <= qpos[:, :, None])
-        if window > 0:
-            mask = mask & (pb[:, None, :] > qpos[:, :, None] - window)
-        s = torch.where(mask[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p_ = torch.exp(s - m_new[..., None])
-        lsum = lsum * alpha + p_.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bqhgc,bchd->bqhgd", p_, vb)
-        m = m_new
+        args = (qf, qpos, m, lsum, acc) + tuple(
+            t[:, c0 : c0 + chunk] for t in (k, v, kv_positions, kv_valid)
+        )
+        if remat:
+            m, lsum, acc = checkpoint(
+                _attend_chunk, *args, causal, window, softcap, use_reentrant=False
+            )
+        else:
+            m, lsum, acc = _attend_chunk(*args, causal, window, softcap)
     out = acc / lsum.clamp_min(1e-30)[..., None]
     return out.reshape(b, sq, hq, d).to(q.dtype)
 

@@ -1,9 +1,10 @@
-"""LM wrapper: embed → backbone → head; prefill; decode.
+"""LM wrapper: embed → backbone → head; loss; prefill; decode.
 
-A port of ``repro.models.model`` (serving half; the training loss waits
-for the training slice). Modality frontends enter as precomputed inputs
-(``repro_torch.models.frontends``): codec token ids, or patch embeddings
-passed as ``vision`` to the cross-attention blocks. Functions over
+A port of ``repro.models.model``. Modality frontends enter as
+precomputed inputs (``repro_torch.models.frontends``): codec token ids,
+or patch embeddings passed as ``vision`` to the cross-attention blocks.
+The training loss's remat and chunked CE use
+``torch.utils.checkpoint``. Functions over
 explicit parameter trees of the JAX package's shape. The weights come
 from :func:`init` with a seeded :class:`torch.Generator`, or from the JAX
 package's own ``init`` through
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -70,6 +72,7 @@ def forward(
     return_hidden: bool = False,
     plain_attention: bool = False,
     return_aux: bool = False,
+    remat: bool = False,
 ):
     """tokens (B, S) int → (logits (B, S, V), caches).
 
@@ -77,7 +80,8 @@ def forward(
     cross-attention blocks. ``return_hidden=True`` skips the LM head and
     returns the final normed hidden states instead. ``return_aux=True``
     appends the MoE aux losses (``transformer.AUX_KEYS``) as a third
-    value, the reference's ``aux``."""
+    value, the reference's ``aux``. ``remat=True`` recomputes each
+    scanned block in the backward pass (``transformer.apply_backbone``)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
@@ -94,6 +98,7 @@ def forward(
         caches=caches,
         plain_attention=plain_attention,
         return_aux=True,
+        remat=remat,
     )
     x = L.apply_norm(cfg, params["final_norm"], x)
     if not return_hidden:
@@ -101,6 +106,81 @@ def forward(
     if return_aux:
         return x, caches, aux
     return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def _ce_terms(
+    cfg: ModelConfig, embed: Params, x: torch.Tensor, labels: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Σ masked CE and Σ mask over a (T, d) hidden slab."""
+    logits = L.lm_logits(cfg, embed, x).float()
+    mask = (labels != 0).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[:, None].long())[:, 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: Params,
+    batch: Dict[str, torch.Tensor],
+    *,
+    remat: bool = False,
+    loss_chunk: int = 0,
+    plain_attention: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: {"tokens": (B,S) int, "labels": (B,S) int, pad=0
+    [, "vision": (B,Nv,d)]} → (scalar loss, metrics).
+
+    ``loss_chunk > 0`` computes head+CE per token chunk under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): a
+    chunk's (T, V) float32 logits live only while it is computed, and are
+    computed again in the backward pass. ``plain_attention=True`` runs the
+    prompt attention on the plain version instead of the flash kernel."""
+    labels = batch["labels"]
+    b, s = labels.shape
+    kw = dict(
+        vision=batch.get("vision"), remat=remat, plain_attention=plain_attention, return_aux=True
+    )
+    if loss_chunk and (b * s) % loss_chunk == 0:
+        x, _, aux = forward(cfg, params, batch["tokens"], return_hidden=True, **kw)
+        xf = x.reshape(b * s, -1)
+        lf = labels.reshape(b * s)
+        ce_sum = m_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, b * s, loss_chunk):
+            ce_c, m_c = checkpoint(
+                _ce_terms,
+                cfg,
+                params["embed"],
+                xf[c0 : c0 + loss_chunk],
+                lf[c0 : c0 + loss_chunk],
+                use_reentrant=False,
+            )
+            ce_sum, m_sum = ce_sum + ce_c, m_sum + m_c
+        denom = m_sum.clamp_min(1.0)
+        ce_mean = ce_sum / denom
+    else:
+        logits, _, aux = forward(cfg, params, batch["tokens"], **kw)
+        mask = (labels != 0).float()
+        logits_f = logits.float()
+        lse = torch.logsumexp(logits_f, dim=-1)
+        gold = logits_f.gather(-1, labels[..., None].long())[..., 0]
+        denom = mask.sum().clamp_min(1.0)
+        ce_mean = ((lse - gold) * mask).sum() / denom
+    loss = ce_mean + cfg.router_aux_weight * aux["aux_loss"] + cfg.router_z_weight * aux["z_loss"]
+    metrics = {
+        "ce": ce_mean,
+        "loss": loss,
+        "tokens": denom,
+        "aux_loss": aux["aux_loss"],
+        "z_loss": aux["z_loss"],
+        "dropped_frac": aux["dropped_frac"],
+    }
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._build import requires_grad
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -105,12 +106,19 @@ def _scan_chunk(
     Hillis–Steele: after the step of offset o, position t holds the
     composition of positions t−2o+1 … t, so ⌈log2 chunk⌉ steps give the
     inclusive prefix (A_cum, B_cum) of the reference's
-    ``associative_scan``; ``da`` and ``dbu`` are overwritten."""
+    ``associative_scan``. Serving overwrites ``da`` and ``dbu`` in place;
+    under autograd, which saved their earlier values, each step builds
+    new tensors from the same products and sums."""
     a, b = da, dbu
+    inplace = not requires_grad(da, dbu, h0)
     off = 1
     while off < a.shape[1]:
-        b[:, off:] += b[:, :-off] * a[:, off:]  # reads the previous step's a
-        a[:, off:] = a[:, off:] * a[:, :-off]
+        if inplace:
+            b[:, off:] += b[:, :-off] * a[:, off:]  # reads the previous step's a
+            a[:, off:] = a[:, off:] * a[:, :-off]
+        else:
+            b = torch.cat([b[:, :off], b[:, off:] + b[:, :-off] * a[:, off:]], dim=1)
+            a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
         off *= 2
     h = a * h0[:, None] + b  # (B,C,di,n)
     return h, h[:, -1]

@@ -15,6 +15,11 @@ scans). Caches are updated in place through those views.
 
 A Mamba block's cache is its SSM state ``{"h", "conv"}``, written back in
 place like the KV cache; a cross-attention block's is ``{}``.
+
+``remat=True`` (training) runs each scanned block under
+``torch.utils.checkpoint``: the backward pass recomputes the block from
+its input and saves nothing inside it, the reference's
+``jax.checkpoint(body, policy=nothing_saveable)`` over its scan body.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -201,10 +207,13 @@ def apply_backbone(
     caches: Optional[Params] = None,
     plain_attention: bool = False,
     return_aux: bool = False,
+    remat: bool = False,
 ):
     """Returns (hidden states, caches), and the summed MoE aux losses
     (:data:`AUX_KEYS`) third with ``return_aux=True``. The caches are
-    updated in place."""
+    updated in place. ``remat=True`` recomputes each scanned block in the
+    backward pass, as the reference rematerialises its scan body (the
+    ``first_k_dense`` lead blocks are kept, as there)."""
     aux = _zero_aux(x.device)
     for i in range(cfg.first_k_dense):
         c = caches["lead"][i] if caches is not None else None
@@ -226,16 +235,11 @@ def apply_backbone(
             c = None
             if caches is not None:
                 c = tree_map(lambda t, r=r: t[r], caches["scan"][j])
-            x, a = apply_block(
-                cfg,
-                spec,
-                block,
-                x,
-                positions=positions,
-                vision=vision,
-                cache=c,
-                plain_attention=plain_attention,
-            )
+            kw = dict(positions=positions, vision=vision, cache=c, plain_attention=plain_attention)
+            if remat:
+                x, a = checkpoint(apply_block, cfg, spec, block, x, use_reentrant=False, **kw)
+            else:
+                x, a = apply_block(cfg, spec, block, x, **kw)
             aux = _add_aux(aux, a)
     if return_aux:
         return x, caches, aux

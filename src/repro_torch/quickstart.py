@@ -5,6 +5,8 @@
 3. Schedule it with the paper's EFT policy over the hierarchical edge/DC
    pool, then execute it: host tasks on the edge (numpy), device tasks on
    the VDC's first device (torch and the port's CUDA kernels).
+4. Train a small LM for a few steps on the same device (the training
+   pipeline is just another DS workload: the loader is its edge side).
 
 Each instance gets its own raw batch of ``rows`` × 8 float32 sensor
 columns made from its seed (500,000 rows are the workload's declared
@@ -65,6 +67,29 @@ def run(
     return sched, reports
 
 
+def train_lm_steps(device: Optional[object] = None, steps: int = 10) -> List[float]:
+    """Step 4: ``steps`` AdamW steps of qwen3-0.6b's reduced config on
+    loader batches (8 × 64 tokens); the loss of each step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import LoaderConfig, TokenBatchLoader
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import build_train_step, init_train_state
+
+    dev = resolve_device(device)
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    opt = OptConfig(lr=1e-3, total_steps=20)
+    state = init_train_state(cfg, opt, torch.Generator(device=dev).manual_seed(0), dev)
+    step = build_train_step(cfg, opt)
+    loader = TokenBatchLoader(LoaderConfig(batch_size=8, seq_len=64, vocab_size=cfg.vocab_size))
+    losses = []
+    for _, batch in zip(range(steps), loader, strict=False):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    return losses
+
+
 def main(
     device: Optional[object] = None, rows: int = 500_000, instances: int = 3
 ) -> None:
@@ -79,6 +104,10 @@ def main(
             f"instance {seed}: {rep.wall_seconds * 1e3:.0f} ms wall, "
             f"backends {rep.by_backend}, export digest {digest}"
         )
+    losses = train_lm_steps(device)
+    print(f"LM train: loss {losses[0]:.3f} → {losses[-1]:.3f} in {len(losses)} steps")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("quickstart: the LM loss did not fall")
     print("quickstart OK")
 
 
