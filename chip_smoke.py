@@ -116,15 +116,38 @@ Phases, each fatal on failure:
    leaf within 2e-2 of its largest magnitude; in float32 compute the loss
    and every leaf within 2e-4. Last, at the training shape, the flash
    kernel's time beside its plain version, the library and its bound,
-   and the backward it takes (the plain version's) beside the library's.
+   and the backward it takes (the plain version's) beside the library's;
+11. the distributed serving path: 4 ranks of one gloo group on the one
+   card (NCCL refuses two ranks on one GPU), spawned after the build,
+   sharing the weights through CUDA IPC. (a) qwen3-0.6b at full width
+   under ``strategy_for(cfg, 1 x 4 data x model mesh,
+   decode_flash_shard=True)``: caches of 2048 slots, 512 a rank; phase
+   5's first 8 requests prefilled (flash kernel) one per cache row, then
+   32 ticks of ``M.decode_step`` whose attention runs
+   ``sharded_decode_attention`` (each rank's stats over its slots, one
+   all-reduce MAX and two SUM a layer). Held, tick by tick on the same
+   fed tokens, to the same run on one rank without rules (the decode
+   kernel): float32 logits within 2e-3, bf16 within twice phase 5's
+   plain spread, greedy tokens equal up to the first near tie; each
+   rank's slots must be a quarter of the whole cache's bytes. (b) one
+   MoE layer at jamba-v0.1's widths (16 experts, top-2, FF 14336) from
+   seed 0, EP over the 4 ranks (4 experts each), x of 8 x 256 tokens:
+   float32 y within 2e-4 of max |y| of ``apply_moe_spmd`` with all 16
+   experts on one rank, its aux terms within 1e-5; ms a bf16 call both
+   ways. (c) one qwen3-0.6b block's gradients (15.7 M float32 elements a
+   rank, ``default_rng(rank)``): ``hierarchical_psum`` on a 2 (pod) x 2
+   (data) mesh equals a flat all-reduce within 1e-5 relative,
+   ``int8_allreduce`` over data = 4 is within 2 % of the mean with a
+   non-zero residual, and a world-1 NCCL group returns its input. Each
+   sub-phase prints its numbers beside the card line.
 
 Prints the card line, JSON lines of the attention and DS kernels' reports
 and one JSON line of kernel results before the last line, which is
 ``{"ok": true, "device": {...}}``. In that line, the DS kernels' launches
-are phase 4's and the attention kernels' the sum over phases 5, 7, 8, 9
-and 10 (each phase's are printed above it); flash's deviation is the
-largest of phases 3 and 10. Exits non-zero, printing no result,
-when there is no CUDA card.
+are phase 4's and the attention kernels' the sum over phases 5, 7, 8, 9,
+10 and 11 (each phase's are printed above it; phase 11's are its ranks'
+and its 1-rank run's); flash's deviation is the largest of phases 3 and
+10. Exits non-zero, printing no result, when there is no CUDA card.
 """
 
 from __future__ import annotations
@@ -1809,6 +1832,410 @@ def train_checks(dev, cfg):
     return out
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+#: phase 11: the distributed serving path, 4 ranks on the one card over gloo
+#: (NCCL refuses two ranks on one GPU), built once by this process
+DIST_RANKS = 4
+DIST_REQUESTS = 8
+DIST_CAPACITY = 2048
+DIST_TICKS = 32
+#: the reference's bound for the sharded decode (tests/test_perf_paths.py:151)
+DIST_F32_TOL = 2e-3
+#: a KV cache's entries indexed by slot, the part sharded on capacity
+SLOTS = ("k", "v", "pos")
+#: (b): one MoE layer at jamba-v0.1's widths, x of 8 x 256 tokens
+DIST_MOE_ARCH = "jamba-v0.1-52b"
+DIST_MOE_X = (8, 256)
+DIST_MOE_Y_TOL = 2e-4  # of max |y|
+DIST_MOE_AUX_TOL = 1e-5
+#: (c): the collectives on one qwen3-0.6b block's gradients
+DIST_COLL_TOL = 1e-5
+DIST_INT8_TOL = 0.02
+
+
+def _row_view(caches, i):
+    """Row ``i`` of a batched cache tree, as views (writes go through)."""
+    from repro_torch.models.transformer import tree_map
+
+    return {
+        "lead": [tree_map(lambda t: t[i : i + 1], c) for c in caches["lead"]],
+        "scan": [tree_map(lambda t: t[:, i : i + 1], c) for c in caches["scan"]],
+    }
+
+
+def _tree_bytes(tree, names=None):
+    """Bytes of a tree's tensors; with ``names``, of the dict entries so
+    named only (a cache's "k", "v" and "pos": its slots)."""
+    from repro_torch.convert import leaves
+
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v, names) for k, v in tree.items()  # det: ok a sum
+                   if names is None or isinstance(v, (dict, list)) or k in names)
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v, names) for v in tree)
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def dist_decode(cfg, params, trace, dev, forced=None):
+    """Prefill each request of ``trace`` into its own row of a batched
+    cache of DIST_CAPACITY slots (``M.prefill``), then DIST_TICKS ticks of
+    ``M.decode_step`` over the batch, under whatever sharding rules are
+    bound. Feeds ``forced`` tokens ((ticks + 1, B), the 1-rank run's)
+    when given, else its greedy ones. Returns the first-token and per-tick
+    logits (float32, on the card: ranks share tensors through CUDA IPC
+    only), the tokens fed, each tick's ms (the card synchronised) and the
+    cache tree."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    b = len(trace)
+    caches = T.init_caches(cfg, b, DIST_CAPACITY, device=dev)
+    first = []
+    for i, (prompt, _, _) in enumerate(trace):
+        toks = torch.as_tensor(prompt, device=dev)[None]
+        lg, _ = M.prefill(cfg, params, toks, _row_view(caches, i))
+        first.append(lg[0])
+    logits = [torch.stack(first).float()]
+    tok = forced[0] if forced is not None else logits[0].argmax(-1)
+    pos = torch.tensor([len(p) for p, _, _ in trace], dtype=torch.int32, device=dev)
+    fed, ms = [tok], []
+    torch.cuda.synchronize()
+    for t in range(DIST_TICKS):
+        t0 = time.perf_counter()
+        lg, _ = M.decode_step(cfg, params, tok, pos, caches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg.float())
+        tok = forced[t + 1] if forced is not None else lg.argmax(-1)
+        fed.append(tok)
+        pos = pos + 1
+    return logits, torch.stack(fed), ms, caches
+
+
+def _dist_cfgs():
+    cfg = serve_cfg()
+    return {"bf16": cfg, "float32": dataclasses.replace(cfg, dtype="float32")}
+
+
+def _moe_cfgs():
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DIST_MOE_ARCH)
+    return {
+        dt: dataclasses.replace(cfg, dtype=dt, param_dtype=dt) for dt in ("float32", "bfloat16")
+    }
+
+
+def _grad_elements(cfg):
+    """One qwen3-0.6b block's matrix parameters: q, k, v, o and the MLP."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return 2 * d * hq * hd + 2 * d * hkv * hd + 3 * d * cfg.d_ff
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _host_ms(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+class _CollectiveClock:
+    """Host seconds inside ``torch.distributed.all_reduce`` while entered
+    (each call blocks its rank until the reduced tensor is back on the
+    card): the merges' share of a decode tick."""
+
+    def __enter__(self):
+        self.seconds, self.calls = 0.0, 0
+        self._orig = torch.distributed.all_reduce
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self._orig(*args, **kwargs)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        torch.distributed.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.all_reduce = self._orig
+
+
+def phase11_rank(rank, world, job):
+    """One rank of phase 11: (a) the capacity-sharded decode, (b) the
+    shard-local MoE layer, (c) the collectives. Returns its numbers."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.compat import set_mesh
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda", 0)
+    out = {"rank": rank}
+    mesh = DeviceMesh("cuda", torch.arange(world).reshape(1, world), mesh_dim_names=("data", "model"))
+
+    # (a) qwen3-0.6b, cache_cap on "model": 512 of 2048 slots a rank
+    cfgs = _dist_cfgs()
+    rules = sh.strategy_for(cfgs["bf16"], mesh, decode_flash_shard=True)
+    if rules.rules["cache_cap"] != "model":
+        raise AssertionError(f"cache_cap rule {rules.rules['cache_cap']}")
+    flash_attention.launches = decode_attention.launches = 0
+    for name, p in (("bf16", job["cast"]), ("float32", job["params"])):
+        base = job["base"][name]
+        with sh.logical_axis_rules(rules), _CollectiveClock() as clock:
+            logits, _, ms, caches = dist_decode(cfgs[name], p, job["trace"], dev, base["tokens"])
+        err = torch.stack([(a - b).abs().max() for a, b in zip(logits, base["logits"], strict=True)])
+        argmax = torch.stack([lg.argmax(-1) for lg in logits])
+        finite = all(bool(torch.isfinite(lg).all()) for lg in logits)
+        k = caches["scan"][0]["k"]
+        out[name] = {"err": err.cpu().tolist(), "argmax": argmax.cpu().numpy(), "tick_ms": ms,
+                     "finite": finite, "cache_bytes": _tree_bytes(caches, SLOTS), "k_shape": tuple(k.shape),
+                     "merge_ms_per_tick": clock.seconds * 1e3 / DIST_TICKS,
+                     "merges_per_tick": clock.calls / DIST_TICKS}
+        del caches, logits
+    out["launches"] = {"flash_attention": flash_attention.launches,
+                       "decode_attention": decode_attention.launches}
+
+    # (b) jamba-v0.1's MoE layer, EP over "model": 4 of 16 experts a rank
+    mcfgs = _moe_cfgs()
+    mrules = sh.strategy_for(mcfgs["float32"], mesh, moe_shard_map=True)
+    if mrules.rules["expert"] != "model":
+        raise AssertionError(f"expert rule {mrules.rules['expert']}")
+    e_loc = mcfgs["float32"].n_experts // world
+    local = {}
+    for dt, whole in job.pop("moe").items():  # det: ok two dtypes, each handled alike
+        local[dt] = {k: (v[rank * e_loc : (rank + 1) * e_loc] if k in ("wi", "wg", "wo") else v).clone()
+                     for k, v in whole.items()}
+    del whole  # the shared whole weights: the rank keeps its experts only
+    x32 = job["moe_x"].clone()
+    y_ref, aux_ref = job["moe_ref"]
+    torch.cuda.synchronize()
+    with sh.logical_axis_rules(mrules):
+        y, aux = moe.apply_moe(mcfgs["float32"], local["float32"], x32)
+        rel = float((y - y_ref).abs().max() / y_ref.abs().max())
+        aux_err = {k: abs(float(aux[k]) - aux_ref[k]) for k in sorted(aux_ref)}
+        x16 = x32.to(torch.bfloat16)
+        moe_ms = _median_event_ms(lambda: moe.apply_moe(mcfgs["bfloat16"], local["bfloat16"], x16))
+    out["moe"] = {
+        "rel_err": rel, "aux_err": aux_err, "ms_bf16": moe_ms, "finite": bool(torch.isfinite(y).all()),
+        "expert_bytes": {dt: sum(local[dt][k].numel() * local[dt][k].element_size()
+                                 for k in ("wi", "wg", "wo")) for dt in local},
+    }
+    del local, y, x32, x16
+
+    # (c) the collectives on one qwen3-0.6b block's gradients
+    n = job["grad_elements"]
+    g = torch.from_numpy(np.random.default_rng(rank).standard_normal(n, dtype=np.float32)).to(dev)
+    pod_data = DeviceMesh("cuda", torch.arange(world).reshape(2, world // 2),
+                          mesh_dim_names=("pod", "data"))
+    data = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
+
+    def flat_sum():
+        y = g.clone()
+        torch.distributed.all_reduce(y)
+        return y
+
+    flat = flat_sum()
+    with set_mesh(pod_data):
+        hier = C.hierarchical_psum(g)
+        hier_ms = _host_ms(lambda: C.hierarchical_psum(g))
+    flat_ms = _host_ms(flat_sum)
+    with set_mesh(data):
+        red, resid = C.int8_allreduce(g, axis="data")
+        mean = C.pmean(g, "data")
+        int8_ms = _host_ms(lambda: C.int8_allreduce(g, axis="data"))
+    out["coll"] = {
+        "hier_rel": float((hier - flat).abs().max() / flat.abs().max()),
+        "int8_rel": float((red - mean).abs().max() / mean.abs().max()),
+        "resid_max": float(resid.abs().max()),
+        "flat_ms": flat_ms, "hier_ms": hier_ms, "int8_ms": int8_ms,
+    }
+    job.clear()  # release the weights shared through CUDA IPC before exit
+    return out
+
+
+def phase11_nccl(rank, world, n):
+    """The collectives once under a world-1 NCCL group on the card: they
+    must return their input (int8: within its quantization)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.compat import set_mesh
+
+    dev = torch.device("cuda", 0)
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(n, dtype=np.float32)).to(dev)
+    with set_mesh(DeviceMesh("cuda", torch.zeros(1, 1, dtype=torch.int64), mesh_dim_names=("pod", "data"))):
+        hier = C.hierarchical_psum(g)
+        hier_ms = _host_ms(lambda: C.hierarchical_psum(g))
+    with set_mesh(DeviceMesh("cuda", torch.zeros(1, dtype=torch.int64), mesh_dim_names=("data",))):
+        red, resid = C.int8_allreduce(g, axis="data")
+        int8_ms = _host_ms(lambda: C.int8_allreduce(g, axis="data"))
+    return {
+        "backend": torch.distributed.get_backend(),
+        "hier_equal": bool(torch.equal(hier, g)),
+        "int8_rel": float((red - g).abs().max() / g.abs().max()),
+        "resid_max": float(resid.abs().max()),
+        "hier_ms": hier_ms, "int8_ms": int8_ms,
+    }
+
+
+def _wire_bytes(n_bytes, world, pod):
+    """Bytes a rank sends, by each algorithm's textbook schedule: a ring
+    all-reduce, the hierarchical one (RS → AR → AG over pod × inner) and
+    the int8 one (all-to-all then all-gather of int8 blocks and scales)."""
+    inner = world // pod
+    ring = 2 * n_bytes * (world - 1) / world
+    hier = (2 * n_bytes * (inner - 1) / inner + 2 * (n_bytes / inner) * (pod - 1) / pod)
+    seg = -(-(n_bytes // 4) // world)  # float32 elements a rank owns, in whole blocks
+    seg = -(-seg // 256) * 256
+    q = seg * world * (1 + 4 / 256)  # int8 blocks and one float32 scale per 256
+    int8 = q * (world - 1) / world + (q / world) * (world - 1)
+    return {"ring": ring, "hierarchical": hier, "hierarchical_outer": 2 * (n_bytes / inner) * (pod - 1) / pod,
+            "int8": int8}
+
+
+def run_distributed(dev, bf16_spread):
+    """Phase 11: the distributed serving path, 4 ranks on the one card."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.spawn import run_ranks
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    card = card_line()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"sharding.HBM_BYTES {sh.HBM_BYTES:.0f} B; the card's total_memory {total} B  [{card}]")
+    cfgs = _dist_cfgs()
+    cfg = cfgs["bf16"]
+    trace = serve_trace(cfg)[:DIST_REQUESTS]
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    cast = M.cast_params(cfg, params)
+
+    # the 1-rank run, no rules: prefill on the flash kernel, decode on the
+    # decode kernel; its greedy tokens are fed to the sharded run
+    flash_attention.launches = decode_attention.launches = 0
+    base, base_ms, whole_bytes = {}, {}, {}
+    for name, p in (("bf16", cast), ("float32", params)):
+        logits, fed, ms, caches = dist_decode(cfgs[name], p, trace, dev)
+        base[name] = {"logits": logits, "tokens": fed}
+        base_ms[name] = ms
+        whole_bytes[name] = _tree_bytes(caches, SLOTS)
+        del caches
+    base_launches = {"flash_attention": flash_attention.launches,
+                     "decode_attention": decode_attention.launches}
+
+    # (b)'s weights from seed 0 (all 16 experts), x and the spmd reference
+    mcfgs = _moe_cfgs()
+    mp = moe.init_moe(mcfgs["float32"], torch.Generator(device=dev).manual_seed(0), dev)
+    mp16 = {k: v.to(torch.bfloat16) for k, v in mp.items()}
+    x = randn(DIST_MOE_X + (mcfgs["float32"].d_model,), 1, dev)
+    y_ref, aux_ref = moe.apply_moe_spmd(mcfgs["float32"], mp, x)
+    x16 = x.to(torch.bfloat16)
+    spmd_ms = _median_event_ms(lambda: moe.apply_moe_spmd(mcfgs["bfloat16"], mp16, x16))
+    expert_whole = {dt: sum(w[k].numel() * w[k].element_size() for k in ("wi", "wg", "wo"))
+                    for dt, w in (("float32", mp), ("bfloat16", mp16))}
+
+    n_grad = _grad_elements(cfg)
+    job = {"trace": trace, "params": params, "cast": cast, "base": base,
+           "moe": {"float32": mp, "bfloat16": mp16}, "moe_x": x,
+           "moe_ref": (y_ref, {k: float(v) for k, v in aux_ref.items()}),
+           "grad_elements": n_grad}
+    t0 = time.perf_counter()
+    ranks = run_ranks(phase11_rank, DIST_RANKS, (job,), backend="gloo", device=0,
+                      threads=2, timeout=900)
+    spawn_s = time.perf_counter() - t0
+    nccl = run_ranks(phase11_nccl, 1, (n_grad,), backend="nccl", device=0, timeout=300)[0]
+    del job, mp, mp16, params, cast
+
+    stats = {"card": card, "ranks": DIST_RANKS, "backend": "gloo", "ranks_s": spawn_s}
+    # (a)
+    b, hq, d = len(trace), cfg.n_heads, cfg.head_dim
+    merge = b * hq * (d + 2) * 4
+    a = {"merge_bytes_per_layer_each_way": merge, "staged_bytes": 0, "staged_ops": []}
+    for name in ("bf16", "float32"):
+        tol = DIST_F32_TOL if name == "float32" else 2 * bf16_spread
+        err = max(max(r[name]["err"]) for r in ranks)
+        gaps = [_top2_gap(lg) for lg in base[name]["logits"]]
+        near = next((t for t, gp in enumerate(gaps) if bool((gp <= tol).any())), len(gaps))
+        fed = base[name]["tokens"].cpu().numpy()
+        agree = next((t for t in range(len(gaps))
+                      if any(not np.array_equal(r[name]["argmax"][t], fed[t]) for r in ranks)),
+                     len(gaps))
+        cache = [r[name]["cache_bytes"] for r in ranks]
+        a[name] = {
+            "max_abs_logit_err": err, "bound": tol, "first_near_tie": near,
+            "tokens_agree_up_to": agree,
+            "tick_ms_4_ranks": max(_median(r[name]["tick_ms"][1:]) for r in ranks),
+            "tick_ms_1_rank": _median(base_ms[name][1:]),
+            "cache_bytes_per_rank": cache, "cache_bytes_whole": whole_bytes[name],
+            "local_k_shape": ranks[0][name]["k_shape"],
+            "merge_ms_per_tick": max(r[name]["merge_ms_per_tick"] for r in ranks),
+            "merges_per_tick": ranks[0][name]["merges_per_tick"],
+        }
+        print(f"phase 11a {name}: {json.dumps(a[name])}  [{card}]")
+        if not all(r[name]["finite"] for r in ranks):
+            raise AssertionError(f"11a {name}: logits not finite")
+        if err > tol:
+            raise AssertionError(f"11a {name}: sharded decode logits part by {err} > {tol}")
+        if agree < near:
+            raise AssertionError(f"11a {name}: greedy tokens part at {agree} before a near tie at {near}")
+        if any(4 * c != whole_bytes[name] for c in cache):
+            raise AssertionError(f"11a {name}: rank caches {cache} are not 1/4 of {whole_bytes[name]}")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in base_launches}
+    want = cfg.n_layers * DIST_REQUESTS * 2 * DIST_RANKS
+    if launches["flash_attention"] != want or launches["decode_attention"]:
+        raise AssertionError(f"11a: ranks' launches {launches}, want {want} flash and no decode")
+    a["launches_ranks"], a["launches_1_rank"] = launches, base_launches
+    print(f"phase 11a: merge {merge} B a layer each way (B*Hq*(D+2)*4), staged through the host "
+          f"by the port: 0 B (no op staged: gloo took every collective on CUDA tensors); "
+          f"flash launches: ranks {launches['flash_attention']}, 1-rank run "
+          f"{base_launches['flash_attention']}  [{card}]")
+    # (b)
+    mo = {"rel_err": max(r["moe"]["rel_err"] for r in ranks),
+          "aux_err": {k: max(r["moe"]["aux_err"][k] for r in ranks) for k in aux_ref},
+          "ms_bf16_ep4": max(r["moe"]["ms_bf16"] for r in ranks), "ms_bf16_spmd_1_rank": spmd_ms,
+          "expert_bytes_per_rank": [r["moe"]["expert_bytes"] for r in ranks],
+          "expert_bytes_whole": expert_whole}
+    print(f"phase 11b: {json.dumps(mo)}  [{card}]")
+    if mo["rel_err"] > DIST_MOE_Y_TOL or max(mo["aux_err"].values()) > DIST_MOE_AUX_TOL:
+        raise AssertionError(f"11b: EP-4 MoE parts from spmd: {mo}")
+    if not all(r["moe"]["finite"] for r in ranks):
+        raise AssertionError("11b: MoE output not finite")
+    for r in ranks:
+        for dt, nb in r["moe"]["expert_bytes"].items():
+            if 4 * nb != expert_whole[dt]:
+                raise AssertionError(f"11b: rank {r['rank']} holds {nb} B of {dt} experts")
+    # (c)
+    co = {"elements": n_grad, "gloo": {k: max(r["coll"][k] for r in ranks) for k in ranks[0]["coll"]},
+          "nccl_world_1": nccl, "wire_bytes_per_rank": _wire_bytes(4 * n_grad, DIST_RANKS, 2)}
+    print(f"phase 11c: {json.dumps(co)}  [{card}]")
+    if co["gloo"]["hier_rel"] > DIST_COLL_TOL:
+        raise AssertionError(f"11c: hierarchical_psum parts from all_reduce by {co['gloo']['hier_rel']}")
+    if co["gloo"]["int8_rel"] > DIST_INT8_TOL or min(r["coll"]["resid_max"] for r in ranks) <= 0:
+        raise AssertionError(f"11c: int8_allreduce {co['gloo']}")
+    if nccl["backend"] != "nccl" or not nccl["hier_equal"] or nccl["int8_rel"] > DIST_INT8_TOL:
+        raise AssertionError(f"11c: world-1 NCCL run {nccl}")
+    stats.update(decode=a, moe=mo, collectives=co)
+    total_launches = {k: launches[k] + base_launches[k] for k in launches}
+    free_card()
+    return total_launches, stats
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1901,11 +2328,17 @@ def main() -> int:
     train_stats["attention"] = time_train_attention(dev, tcfg)
     print(f"training phase: {time.perf_counter() - t0:.3f} s")
 
+    phase("11. distributed serving path (4 ranks on the card)")
+    t0 = time.perf_counter()
+    dist_launches, dist_stats = run_distributed(dev, serve_err["bf16_plain_spread"])
+    print(f"distributed phase: {time.perf_counter() - t0:.3f} s")
+
     # the attention kernels' launches: every serving phase's path and training's
     for name in ("flash_attention", "decode_attention"):
         launches[name] = serve_launches[name] + gateway_launches[name]
         launches[name] += sum(b[0][name] for b in blocks.values())
         launches[name] += train_launches.get(name, 0)
+        launches[name] += dist_launches[name]
     meta = {
         "kmeans_assign": (
             "src/repro_torch/csrc/kmeans_assign.cu",
@@ -1961,6 +2394,8 @@ def main() -> int:
     print(f"training: {json.dumps(train_stats)}")
     print(f"training, kernels vs plain: {json.dumps(train_err)}")
     print(f"training launches (phase 10): {json.dumps(train_launches)}")
+    print(f"distributed: {json.dumps(dist_stats)}")
+    print(f"distributed launches (phase 11): {json.dumps(dist_launches)}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

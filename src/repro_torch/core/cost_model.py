@@ -272,6 +272,30 @@ class LearnedCostModel(CostModel):
         return super().exec_time(task, pe)
 
 
+def rate_table_with(model: LearnedCostModel, kind: str,
+                    measured_on: Sequence[str]) -> Dict[str, Dict[str, float]]:
+    """``model``'s rate table with a column for ``kind``, fitted from samples.
+
+    For each family, the rate is :class:`LearnedCostModel`'s ridge fit over
+    the samples the executor observed on the PE kinds ``measured_on``: PEs
+    whose tasks ran on the card that ``kind`` names (the port runs every
+    non-host PE of ``paper_pool`` on one card). A family with fewer than
+    ``model.min_samples`` samples gets no entry, so scheduling it on
+    ``kind`` raises, as a missing rate does. Pass the table to
+    ``CostModel(rate=...)`` to schedule over :func:`~repro_torch.core.resources.gpu_pool`.
+    """
+    table = {f: dict(r) for f, r in sorted(model.rate.items())}
+    for fam in sorted({f for f, _ in model._obs}):
+        samples = [s for k in measured_on for s in model._obs.get((fam, k), ())]
+        if len(samples) < model.min_samples:
+            continue
+        num = sum(w * t for w, t in samples)
+        den = sum(t * t for _, t in samples) + model.ridge
+        if num / den > 0:
+            table.setdefault(fam, {})[kind] = num / den
+    return table
+
+
 # ---------------------------------------------------------------------------
 # Roofline pricing for jobs on VDC slices
 # ---------------------------------------------------------------------------
@@ -282,6 +306,7 @@ H100_PEAK_FLOPS = 989e12     # bf16 FLOP/s, tensor cores, dense
 H100_HBM_BW = 3.35e12        # bytes/s, HBM3
 H100_NVLINK_BW = 450e9       # bytes/s each way per card (NVLink 4, 900 GB/s total)
 H100_NET_BW = 50e9           # bytes/s between hosts (DGX H100: 400 Gb/s NIC per card)
+H100_PCIE_BW = 64e9          # bytes/s each way, host to card (PCIe Gen5 x16)
 
 
 @dataclasses.dataclass(frozen=True)

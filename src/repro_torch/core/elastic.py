@@ -1,7 +1,7 @@
 # fmt: off
-# A copy of src/repro/core/elastic.py without its jax imports and `reshard`
-# (which waits for a DTensor port), kept in its hand-aligned layout so the
-# two stay diffable line for line; only the imports name repro_torch.
+# A copy of src/repro/core/elastic.py with `reshard` ported to DTensor and
+# without the jax imports, kept in its hand-aligned layout so the two stay
+# diffable line for line; only the imports name repro_torch.
 """Elastic scaling, failure handling, straggler mitigation (JITA-4DS
 "continuous provisioning and re-provisioning of DC resources").
 
@@ -31,6 +31,34 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+
+# ---------------------------------------------------------------------------
+# Live resharding
+# ---------------------------------------------------------------------------
+
+def reshard(tree, new_mesh: DeviceMesh, spec_fn) -> object:
+    """Re-place every leaf of ``tree`` onto ``new_mesh``.
+
+    ``spec_fn(leaf) -> PartitionSpec`` maps each leaf to its spec on the
+    new mesh (normally repro_torch.distributed.sharding rules); the leaf
+    becomes a DTensor with that spec's placements (``distribute_tensor``
+    from rank 0's value). A DTensor leaf is gathered from its old mesh
+    first, so this works across different device counts — the elastic
+    scale-up/down primitive.
+    """
+    from repro_torch.distributed.sharding import placements
+    from repro_torch.train.tree import tree_map
+
+    def _move(leaf):
+        spec = spec_fn(leaf)
+        full = leaf.full_tensor() if isinstance(leaf, DTensor) else torch.as_tensor(leaf)
+        full = full.to(new_mesh.device_type)
+        return distribute_tensor(full, new_mesh, placements(spec, new_mesh, full.ndim))
+    return tree_map(_move, tree)
 
 
 # ---------------------------------------------------------------------------

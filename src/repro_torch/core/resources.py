@@ -1,7 +1,7 @@
 # fmt: off
 # A copy of src/repro/core/resources.py, kept in its hand-aligned layout so the
 # two stay diffable line for line; the imports name repro_torch and the
-# TPU pool factory is left out.
+# TPU pool factory is replaced by :func:`gpu_pool`.
 """Hierarchical resource pool (paper §4.1).
 
 The paper models a two-layer pool: a *frontend* of low-power edge PEs (ARM
@@ -11,8 +11,9 @@ experiments). A :class:`ProcessingElement` is anything the workload manager
 can place a task on; a :class:`ResourcePool` is the set of PEs plus the
 :class:`Link` matrix between *locations*.
 
-The PyTorch port schedules over :func:`paper_pool`; host PEs run the numpy
-backend and backend PEs the torch device backend on the VDC's card.
+The PyTorch port schedules over :func:`paper_pool` or :func:`gpu_pool`; host
+PEs run the numpy backend and the other PEs the torch device backend on the
+VDC's card.
 """
 
 from __future__ import annotations
@@ -314,4 +315,44 @@ def paper_pool(n_arm: int = 3, n_volta: int = 1, n_xeon: int = 3,
         Link(FRONTEND, BACKEND, edge_link_bps),
         Link(BACKEND, FRONTEND, edge_link_bps),
     ]
+    return ResourcePool(pes, links)
+
+
+def gpu_pool(n_host_cores: int = 8, group_sizes: Sequence[int] = (1, 2, 4, 8),
+             nodes: int = 1, pcie_bw: Optional[float] = None,
+             net_bw: Optional[float] = None,
+             power_limit_w: float = 700.0) -> ResourcePool:
+    """H100 hierarchical pool: host CPUs ("edge") + groups of cards ("VDC").
+
+    The port's counterpart of the reference's ``tpu_pool``. Each group PE
+    aggregates ``cards`` H100s of one node (``speed`` = its card count;
+    the per-card rate of kind ``"gpu"`` comes from the cost model's table,
+    which the caller fills from measurements, e.g.
+    :func:`repro_torch.core.cost_model.rate_table_with`). Host↔card traffic
+    is priced at PCIe Gen5 bandwidth and node↔node traffic at the H100
+    network bandwidth of :mod:`repro_torch.core.cost_model`. A card's busy
+    power is its power limit (``nvidia-smi``'s ``power.limit``); its idle
+    power is a tenth of that, an assumption, not a measurement.
+    """
+    from repro_torch.core.cost_model import H100_NET_BW, H100_PCIE_BW
+
+    pcie_bw = H100_PCIE_BW if pcie_bw is None else pcie_bw
+    net_bw = H100_NET_BW if net_bw is None else net_bw
+    pes: List[ProcessingElement] = []
+    for i in range(n_host_cores):
+        pes.append(ProcessingElement(
+            f"host{i}", "host_cpu", FRONTEND, power_busy=15, power_idle=3))
+    links: List[Link] = []
+    for node in range(nodes):
+        loc = f"node{node}"
+        for g in group_sizes:
+            pes.append(ProcessingElement(
+                f"gpu_n{node}_g{g}", "gpu", loc, speed=float(g),
+                power_busy=power_limit_w * g, power_idle=0.1 * power_limit_w * g,
+                chips=g))
+        links.append(Link(FRONTEND, loc, pcie_bw))
+        links.append(Link(loc, FRONTEND, pcie_bw))
+        for other in range(nodes):
+            if other != node:
+                links.append(Link(loc, f"node{other}", net_bw))
     return ResourcePool(pes, links)

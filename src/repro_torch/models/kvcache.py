@@ -15,6 +15,12 @@ Unlike the JAX version, :func:`update_cache` writes in place: the cache
 tensors (or the views of a stacked cache that the backbone hands it) are
 updated and returned, never copied. The one-token write is an indexed
 store of B rows, not the JAX version's where-update over the whole cache.
+
+A cache sharded on its capacity (``cache_cap`` over "model",
+``repro_torch.distributed``) holds on each rank only the block of slots
+``[start, start + C_local)`` of the global ring of C slots; ``shard=(start,
+C)`` makes :func:`update_cache` write only the ring slots (``idx % C``)
+that fall in the rank's block, so the cache never leaves the rank.
 """
 
 from __future__ import annotations
@@ -53,18 +59,25 @@ def layer_capacity(cfg: ModelConfig, local: bool, max_seq: int) -> int:
 
 
 def update_cache(
-    cache: Cache, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
+    cache: Cache,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    positions: torch.Tensor,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Cache, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Write S new kv entries at ring slots, in place; return the cache view.
 
     k/v: (B, S, Hkv, D); positions: (B, S) absolute. Returns
     (cache, k_all, v_all, pos_all, valid_all) where *_all are the (B, C)
-    capacity views the attention reads.
+    capacity views the attention reads. ``shard=(start, C)``: the cache
+    holds the slots ``[start, start + C_local)`` of a ring of C slots.
     """
     b, c = cache["k"].shape[:2]
     s = k.shape[1]
     rows = torch.arange(b, device=k.device)
-    if s == 1:
+    if shard is not None:
+        _update_block(cache, k, v, positions, rows, *shard)
+    elif s == 1:
         slot = (cache["idx"] % c).long()
         cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
@@ -83,3 +96,44 @@ def update_cache(
         cache["pos"][rows[:, None], slots] = positions.to(torch.int32)
     cache["idx"] += s
     return cache, cache["k"], cache["v"], cache["pos"], cache["pos"] >= 0
+
+
+def _update_block(
+    cache: Cache,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    positions: torch.Tensor,
+    rows: torch.Tensor,
+    start: int,
+    cap: int,
+) -> None:
+    """The ring write of :func:`update_cache` restricted to the rank's
+    block of slots ``[start, start + C_local)`` of a ring of ``cap``."""
+    c = cache["k"].shape[1]
+    s = k.shape[1]
+    news = {"k": k, "v": v, "pos": positions.to(torch.int32)}
+    if s == 1:
+        # one slot a row: store the new entry where the rank owns the
+        # slot, and the slot's own value back elsewhere
+        local = (cache["idx"].long() % cap) - start
+        own = (local >= 0) & (local < c)
+        local = local.clamp(0, c - 1)
+        for name, new in news.items():  # det: ok fixed keys
+            t = cache[name]
+            keep = t[rows, local]
+            hit = own.view((-1,) + (1,) * (keep.dim() - 1))
+            t[rows, local] = torch.where(hit, new[:, 0].to(t.dtype), keep)
+        return
+    # a segment: the last n tokens survive; token j lands on ring slot
+    # (base + j) % cap, so each of the block's slots reads the token that
+    # lands on it (if any): a gather, with no two writes to one slot
+    n = min(s, cap)
+    base = cache["idx"].long() + (s - n)
+    slots = torch.arange(start, start + c, device=k.device)
+    j = (slots[None] - base[:, None]) % cap  # (B, C_local)
+    hit = j < n
+    j = j.clamp(max=n - 1) + (s - n)
+    for name, new in news.items():  # det: ok fixed keys
+        t = cache[name]
+        got = new[rows[:, None], j].to(t.dtype)
+        t.copy_(torch.where(hit.view(hit.shape + (1,) * (t.dim() - 2)), got, t))

@@ -22,6 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.compat import shard_map
+from repro_torch.distributed.sharding import P, block_start, current_rules, sharded_extent
 from repro_torch.kernels._build import requires_grad
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
@@ -231,6 +234,77 @@ def chunked_attention(
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
+def sharded_decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,
+    kv_valid: torch.Tensor,
+    window: int,
+    softcap: float,
+    rules: Any,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Flash-decode over a CAPACITY-sharded cache (the reference's §Perf path).
+
+    Each rank computes online-softmax stats (m, l, acc) over its block of
+    the cache's slots; the stats merge with one all-reduce MAX of m and
+    one all-reduce SUM each of the corrected l and acc over "model": wire
+    bytes O(B·Hq·D) a layer instead of gathering the cache. The body is
+    the plain version, as the reference's is plain ``jnp`` in
+    ``shard_map``; masked scores are -1e30, so a block with no valid slot
+    contributes exp(-1e30 - m_g) = 0.
+
+    q: (B, 1, Hq, D) replicated over "model"; k/v: (B, C, Hkv, D) with C
+    sharded over "model"; positions/valid sharded alike. Plain tensors are
+    the rank's blocks.
+    """
+    tp_axis = "model"
+    b, _, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale_ = scale if scale is not None else 1.0 / math.sqrt(d)
+    b_rule = rules.dim_rule("batch", b)
+    cap_rule = rules.dim_rule("cache_cap", k.shape[1])
+
+    def body(q_l, k_l, v_l, pos_l, valid_l, qpos_l):
+        qf = (q_l.float() * scale_).reshape(q_l.shape[0], hkv, g, d)  # (B,Hkv,G,D)
+        s = torch.einsum("bhgd,bchd->bhgc", qf, k_l.float())
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        mask = valid_l[:, None, None, :] & (pos_l[:, None, None, :] <= qpos_l[:, None, None, None])
+        if window > 0:
+            mask = mask & (pos_l[:, None, None, :] > qpos_l[:, None, None, None] - window)
+        s = torch.where(mask, s, NEG_INF)
+        m = s.amax(-1)  # (B,Hkv,G)
+        p_ = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        lsum = p_.sum(-1)
+        acc = torch.einsum("bhgc,bchd->bhgd", p_, v_l.float())
+        # merge partial softmax stats across capacity shards
+        m_g = C.pmax(m, tp_axis)
+        corr = torch.exp(m - m_g)
+        lsum_g = C.psum(lsum * corr, tp_axis)
+        acc_g = C.psum(acc * corr[..., None], tp_axis)
+        out = acc_g / lsum_g.clamp_min(1e-30)[..., None]
+        return out.reshape(q_l.shape[0], 1, hq, d).to(q_l.dtype)
+
+    return shard_map(
+        body,
+        rules.mesh,
+        in_specs=(
+            P(b_rule, None, None, None),
+            P(b_rule, cap_rule, None, None),
+            P(b_rule, cap_rule, None, None),
+            P(b_rule, cap_rule),
+            P(b_rule, cap_rule),
+            P(b_rule),
+        ),
+        out_specs=P(b_rule, None, None, None),
+    )(q, k, v, kv_positions, kv_valid, q_positions[:, 0])
+
+
 def attention_block(
     cfg: ModelConfig,
     p: Params,
@@ -251,7 +325,9 @@ def attention_block(
     mask), ``flash_attention`` otherwise, which assumes each row's
     positions are consecutive (prefill and forward pass 0..S-1).
     ``plain_attention=True`` runs :func:`chunked_attention` instead, as
-    cross-attention always does."""
+    cross-attention always does. Under sharding rules with
+    ``decode_flash_shard`` the cache is the rank's block of slots and a
+    decode step runs :func:`sharded_decode_attention`."""
     q, k, v = _project_qkv(cfg, p, x, kv_x)
     cross = kv_x is not None
     window = cfg.sliding_window if local else 0
@@ -262,7 +338,32 @@ def attention_block(
     kv_valid = None
     decode = False
     if cache is not None and not cross:
-        cache, k_all, v_all, pos_all, valid_all = update_cache(cache, k, v, positions)
+        rules = current_rules()
+        flash_shard = rules is not None and rules.options.get("decode_flash_shard")
+        n_cap = sharded_extent(rules, "cache_cap") if flash_shard else 1
+        shard = None
+        if n_cap > 1:  # the cache holds the rank's block of slots
+            c_local = cache["k"].shape[1]
+            shard = (block_start(rules, "cache_cap", c_local), c_local * n_cap)
+        cache, k_all, v_all, pos_all, valid_all = update_cache(cache, k, v, positions, shard)
+        if q.shape[1] == 1 and flash_shard:
+            out = sharded_decode_attention(
+                q,
+                k_all,
+                v_all,
+                q_positions=positions,
+                kv_positions=pos_all,
+                kv_valid=valid_all,
+                window=window,
+                softcap=softcap,
+                rules=rules,
+            )
+            b, s = out.shape[:2]
+            out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+            y = out @ p["wo"].to(out.dtype)
+            if cfg.use_bias:
+                y = y + p["bo"].to(out.dtype)
+            return y, cache
         if q.shape[1] == 1:
             # decode: attend over the cache view (ring wraparound handled
             # by absolute positions + validity mask)

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -87,6 +88,7 @@ def forward(
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
         positions = positions[None].expand(b, s)
     x = L.embed_tokens(cfg, params["embed"], tokens)
+    x = constrain(x, "batch", "seq", None)
     if vision is not None:
         vision = vision.to(x.dtype)
     x, caches, aux = T.apply_backbone(
@@ -103,6 +105,7 @@ def forward(
     x = L.apply_norm(cfg, params["final_norm"], x)
     if not return_hidden:
         x = L.lm_logits(cfg, params["embed"], x)
+        x = constrain(x, "batch", "seq", "vocab")
     if return_aux:
         return x, caches, aux
     return x, caches

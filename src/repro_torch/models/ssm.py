@@ -27,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels._build import requires_grad
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -134,6 +135,7 @@ def apply_mamba(
     dt = x.dtype
     xz = x @ p["in_proj"].to(dt)  # (B,S,2di)
     u, z = xz.chunk(2, dim=-1)
+    u = constrain(u, "batch", None, "d_inner")
 
     conv_state = state["conv"] if state is not None else None
     u, new_conv = _causal_conv(cfg, p, u, conv_state)

@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain, current_rules, sharded_extent
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -137,6 +138,7 @@ def apply_block(
     if cfg.sandwich_norm:
         y = L.apply_norm(cfg, p["post_norm1"], y)
     x = x + y
+    x = constrain(x, "batch", "seq", None)
 
     if "norm2" not in p:  # FF-less block (pure Mamba-1 layer)
         return x, {}
@@ -147,7 +149,9 @@ def apply_block(
         y, aux = L.apply_mlp(cfg, p["mlp"], h), {}
     if cfg.sandwich_norm:
         y = L.apply_norm(cfg, p["post_norm2"], y)
-    return x + y, aux
+    x = x + y
+    x = constrain(x, "batch", "seq", None)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -174,15 +178,31 @@ def init_backbone(cfg: ModelConfig, gen: torch.Generator, device) -> Params:
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device="cpu") -> Params:
     """KV caches for attention blocks, SSM state for Mamba blocks, ``{}``
-    for cross-attention blocks (their keys come from the vision input)."""
+    for cross-attention blocks (their keys come from the vision input).
+
+    Under sharding rules (``repro_torch.distributed``) ``batch`` and the
+    capacities are global and each rank allocates its block: the batch
+    over the rules' batch axes and, with ``cache_cap`` on "model", the
+    KV capacity over "model"; both must divide evenly."""
+    rules = current_rules()
+    n_batch = sharded_extent(rules, "batch") if rules is not None else 1
+    n_cap = sharded_extent(rules, "cache_cap") if rules is not None else 1
+    if batch % n_batch:
+        raise ValueError(f"batch {batch} does not divide over the {n_batch} batch blocks")
+    batch //= n_batch
+
+    def capacity(spec: BlockSpec) -> int:
+        cap = layer_capacity(cfg, spec.mixer == "local", max_seq)
+        if cap % n_cap:
+            raise ValueError(f"cache capacity {cap} does not divide over {n_cap} ranks")
+        return cap // n_cap
 
     def one(spec: BlockSpec) -> Dict[str, torch.Tensor]:
         if spec.mixer == "mamba":
             return ssm_lib.init_ssm_state(cfg, batch, device=device)
         if spec.mixer == "xattn":
             return {}
-        cap = layer_capacity(cfg, spec.mixer == "local", max_seq)
-        return init_kv_cache(cfg, batch, cap, device=device)
+        return init_kv_cache(cfg, batch, capacity(spec), device=device)
 
     lead = [one(cfg.block_spec(i)) for i in range(cfg.first_k_dense)]
     scan = []

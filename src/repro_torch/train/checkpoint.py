@@ -29,6 +29,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import distribute
 from repro_torch.train.tree import flatten_with_path, unflatten
 
 
@@ -104,9 +105,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # -- restore -----------------------------------------------------------------
-    def restore(self, tree_like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                shardings: Optional[Any] = None) -> Any:
         """Restore into the structure of ``tree_like``: each leaf on the
-        device and in the type of ``tree_like``'s leaf at its place."""
+        device and in the type of ``tree_like``'s leaf at its place.
+        ``shardings`` (same structure, :class:`~repro_torch.distributed.
+        sharding.NamedSharding` leaves or None) re-places the buffers: a leaf
+        with a sharding becomes a DTensor of that layout on its mesh, each
+        rank keeping its block of the file's array (elastic resume, across
+        a different mesh or rank count)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError("no committed checkpoint found")
@@ -119,10 +126,25 @@ class CheckpointManager:
                 f"checkpoint has {len(manifest['leaves'])} leaves, "
                 f"target structure has {len(items)}"
             )
+        shard_leaves = (_shardings_of(tree_like, shardings) if shardings is not None
+                        else [None] * len(items))
         out = []
-        for (name, like), meta in zip(items, manifest["leaves"], strict=True):
+        for (name, like), meta, shd in zip(items, manifest["leaves"], shard_leaves, strict=True):
             if name != meta["key"]:
                 raise ValueError(f"leaf order mismatch: {name} vs {meta['key']}")
             arr = np.load(os.path.join(d, meta["file"]), allow_pickle=False)
-            out.append(_to_tensor(arr, meta["dtype"], like))
+            t = _to_tensor(arr, meta["dtype"], like)
+            out.append(t if shd is None else distribute(t, shd.spec, shd.mesh))
         return unflatten(tree_like, out)
+
+
+def _shardings_of(tree_like: Any, shardings: Any) -> List[Any]:
+    """The sharding of each leaf of ``tree_like``, in its flatten order; a
+    None in ``shardings`` stands for every leaf under it."""
+    if shardings is None:
+        return [None] * len(flatten_with_path(tree_like))
+    if isinstance(tree_like, dict):
+        return [s for k in sorted(tree_like) for s in _shardings_of(tree_like[k], shardings[k])]
+    if isinstance(tree_like, (list, tuple)):
+        return [s for i, x in enumerate(tree_like) for s in _shardings_of(x, shardings[i])]
+    return [] if tree_like is None else [shardings]

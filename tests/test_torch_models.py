@@ -297,17 +297,39 @@ def test_cast_params_casts_products_and_keeps_norms():
 
 
 def test_unported_blocks_raise():
-    """Every block kind is ported: each config builds. What stays unported
-    is the shard-local MoE dispatch, which waits for the distributed port
-    and raises naming its ROADMAP item."""
+    """Every block kind is ported: each config builds. The shard-local MoE
+    dispatch, the last piece that raised, is ported too: on a one-rank
+    (1, 1) mesh it equals the reference's ``apply_moe_shard_map`` on the
+    same weights (the 8-rank check is tests/test_torch_perf_paths.py)."""
+    import torch_dist_ranks as R
+    from jax.sharding import Mesh
+
+    from repro.distributed import sharding as JSh
+    from repro.distributed.compat import set_mesh as j_set_mesh
+    from repro.models import moe as JMoE
+    from repro_torch.distributed import sharding as sh
     from repro_torch.models import moe
 
     for arch in ("falcon-mamba-7b", "mixtral-8x22b", "llama-3.2-vision-11b"):
         cfg = configs.get_config(arch, smoke=True)
         M.init(cfg, torch.Generator().manual_seed(0), "cpu")
-        x = torch.zeros(1, 2, cfg.d_model)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            moe.apply_moe_shard_map(cfg, {}, x, rules=None)
+    cfg = dataclasses.replace(configs.get_config("mixtral-8x22b", smoke=True), dtype="float32")
+    jcfg = _jax_cfg(cfg)
+    jp = JMoE.init_moe(jcfg, jax.random.PRNGKey(0))
+    x = np.random.default_rng(0).normal(0, 1, (2, 7, cfg.d_model)).astype(np.float32)
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    jrules = JSh.strategy_for(jcfg, jmesh, moe_shard_map=True)
+    with JSh.logical_axis_rules(jrules), j_set_mesh(jmesh):
+        jy, jaux = jax.jit(lambda p, x: JMoE.apply_moe_shard_map(jcfg, p, x, jrules))(
+            jp, jnp.asarray(x))
+    with R.process_group("gloo", 1):
+        rules = sh.strategy_for(cfg, R.mesh((1, 1), ("data", "model")), moe_shard_map=True)
+        with sh.logical_axis_rules(rules):
+            y, aux = moe.apply_moe_shard_map(cfg, params_from_reference(jp, "cpu"),
+                                             torch.from_numpy(x), rules)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
+    for k in ("aux_loss", "z_loss", "dropped_frac"):
+        np.testing.assert_allclose(float(aux[k]), float(jaux[k]), **TOL)
 
 
 def test_decode_route_launch_count_is_zero_on_cpu():

@@ -110,9 +110,33 @@ def test_capacity_matches(tokens):
 
 
 def test_moe_shard_map_waits_for_the_distributed_port():
-    cfg = MOE_CASES["mixtral"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 16"):
-        moe.apply_moe_shard_map(cfg, {}, torch.zeros(1, 1, cfg.d_model), None)
+    """The distributed port has come: ``apply_moe_shard_map`` on a one-rank
+    (1, 1) mesh equals the reference's on the same (noisy) weights, with
+    a shared expert and drops (the 8-rank check is
+    tests/test_torch_perf_paths.py)."""
+    import torch_dist_ranks as R
+    from jax.sharding import Mesh
+
+    from repro.distributed import sharding as JSh
+    from repro.distributed.compat import set_mesh as j_set_mesh
+    from repro_torch.distributed import sharding as sh
+
+    cfg = MOE_CASES["gelu, drops, shared"]
+    jcfg = _jcfg(cfg)
+    jp = _noisy(JMoE.init_moe(jcfg, jax.random.PRNGKey(5)), 5)
+    x = np.random.default_rng(5).normal(0, 1, (3, 11, cfg.d_model)).astype(np.float32)
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    jrules = JSh.strategy_for(jcfg, jmesh, moe_shard_map=True)
+    with JSh.logical_axis_rules(jrules), j_set_mesh(jmesh):
+        jy, jaux = jax.jit(lambda p, x: JMoE.apply_moe(jcfg, p, x))(jp, jnp.asarray(x))
+    with R.process_group("gloo", 1):
+        rules = sh.strategy_for(cfg, R.mesh((1, 1), ("data", "model")), moe_shard_map=True)
+        with sh.logical_axis_rules(rules):
+            y, aux = moe.apply_moe(cfg, params_from_reference(jp, "cpu"), _t(x))
+    _close(y, jy)
+    _close(aux["aux_loss"], jaux["aux_loss"])
+    _close(aux["z_loss"], jaux["z_loss"])
+    assert float(aux["dropped_frac"]) == float(jaux["dropped_frac"]) > 0
 
 
 # -- Mamba ---------------------------------------------------------------------

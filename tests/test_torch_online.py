@@ -131,15 +131,27 @@ def test_copied_modules_equal_their_reference(rel):
 
 
 def test_elastic_copy_equals_its_reference_functions():
-    """The port's elastic module is the reference's framework-free part:
-    the same source for each of its classes and functions, and no
-    ``reshard`` (it moves jax arrays)."""
+    """The port's elastic module is the reference's: the same source for
+    each of its framework-free classes and functions, and a ``reshard``
+    over DTensor that moves a tree as the reference's moves one onto the
+    current devices (a one-rank mesh, a replicated spec)."""
+    import torch
+    import torch_dist_ranks as R
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import P
+
     names = ["WorkerHealth", "HealthMonitor", "prune_pool", "ElasticPlan",
              "plan_remesh", "rebalance_batch"]
     for name in names:
         ref = inspect.getsource(getattr(REF.elastic, name))
         assert inspect.getsource(getattr(PORT.elastic, name)) == ref, name
-    assert not hasattr(PORT.elastic, "reshard")
+    tree = {"w": np.ones((4, 4), np.float32), "b": [np.arange(3, dtype=np.float32)]}
+    with R.process_group("gloo", 1):
+        out = PORT.elastic.reshard(tree, R.mesh((1, 1), ("data", "model")), lambda leaf: P())
+        assert isinstance(out["w"], DTensor) and isinstance(out["b"][0], DTensor)
+        assert float(out["w"].full_tensor().sum()) == 16
+        assert torch.equal(out["b"][0].full_tensor(), torch.arange(3.0))
     text = (SRC / "repro_torch/core/elastic.py").read_text()
     assert "import jax" not in text and "from jax" not in text
 
